@@ -1,0 +1,28 @@
+"""latticefold_torch: the LatticeFold NIFS prover in PyTorch, with
+hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
+
+A port of ``latticefold_tpu`` that imports nothing of it: same module names,
+same array layouts at public functions (NTT form ``[..., ncomp, e, nl]``
+Montgomery limbs with R = 2^(32 nl), coefficient form ``[..., d, nl]``), so
+each function has a counterpart there. Limbs are held in int64 tensors
+(see ``modops``). Entry points run on ``cuda`` unless the caller passes
+``device="cpu"``; without a card they raise.
+
+Kernels (``csrc/``, built at first use by ``cuda.py``):
+
+    crt_kernel.cu     CRT / ICRT of ring-element batches   (rings/ops.py)
+    commit_kernel.cu  Ajtai commitment contraction          (rings/mxu.py)
+
+Public surface:
+
+    rings.construct.get_ring   -- the four cyclotomic ring presets
+    arith                      -- CCS/R1CS/CCCS/LCCCS, Witness
+    commitment.AjtaiScheme     -- Module-SIS commitments (commit kernel)
+    transcript.Transcript      -- Fiat-Shamir (Poseidon)
+    nifs                       -- LatticeFold NIFS prove/verify
+    convert                    -- numpy arrays -> the port's tensors/objects
+"""
+
+__version__ = "0.1.0"
+
+from .rings.construct import get_ring  # noqa: F401  (primary entry point)

@@ -1,0 +1,123 @@
+"""Ajtai (Module-SIS) commitments.
+
+The scheme is a public random kappa x n matrix over the NTT-form ring; a
+commitment is the ring matrix-vector product A f. The matrix is sampled on
+the host from the same seeded numpy stream as the JAX package's, so both
+packages hold the same matrix bit for bit. Every commit -- single or batched,
+at any width -- goes through ``rings.mxu.ajtai_commit``: the commit kernel
+on the card.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import modops as mo
+from .arith.ccs import Commitment
+from .device import resolve
+from .rings import mxu
+from .rings import ops as rops
+from .rings.construct import Ring
+
+
+def _sample_field(rng: np.random.Generator, q: int, nl: int, shape) -> np.ndarray:
+    """Uniform canonical-domain limbs via rejection sampling on q.bit_length() bits."""
+    total = int(np.prod(shape))
+    bits = q.bit_length()
+    out = np.empty(total, dtype=object)
+    filled = 0
+    while filled < total:
+        need = total - filled
+        raw = rng.integers(0, 1 << 32, size=(need + 7, (bits + 31) // 32), dtype=np.uint64)
+        vals = np.zeros(raw.shape[0], dtype=object)
+        for i in range(raw.shape[1]):
+            vals |= raw[:, i].astype(object) << (32 * i)
+        vals &= (1 << bits) - 1
+        ok = vals < q
+        acc = vals[ok][:need]
+        out[filled : filled + len(acc)] = acc
+        filled += len(acc)
+    return out.reshape(shape)
+
+
+def _sample_field_u64(rng: np.random.Generator, q: int, shape) -> np.ndarray:
+    """_sample_field for q < 2^64, bit-identical stream, pure u64 numpy."""
+    total = int(np.prod(shape))
+    bits = q.bit_length()
+    words = (bits + 31) // 32
+    mask = np.uint64((1 << bits) - 1)
+    out = np.empty(total, dtype=np.uint64)
+    filled = 0
+    while filled < total:
+        need = total - filled
+        raw = rng.integers(0, 1 << 32, size=(need + 7, words), dtype=np.uint64)
+        vals = np.zeros(raw.shape[0], dtype=np.uint64)
+        for i in range(words):
+            vals |= raw[:, i] << np.uint64(32 * i)
+        vals &= mask
+        acc = vals[vals < q][:need]
+        out[filled : filled + len(acc)] = acc
+        filled += len(acc)
+    return out.reshape(shape)
+
+
+class AjtaiScheme:
+    """kappa x n matrix of uniform NTT-form ring elements, seed-deterministic.
+
+    ``device``: where the matrix lives and commits run; None means CUDA
+    (raises without a card)."""
+
+    def __init__(self, ring: Ring, kappa: int, n: int, seed: int = 0, device=None):
+        dev = resolve(device)
+        self.ring = ring
+        self.kappa = kappa
+        self.n = n
+        rng = np.random.default_rng(np.random.PCG64(seed))
+        shape = (kappa, n, ring.ncomp, ring.e)
+        if ring.nl <= 2:
+            # same rejection stream as _sample_field, assembled in u64 and
+            # Montgomery-encoded on the device
+            vals = _sample_field_u64(rng, ring.q, shape)
+            limbs = [(vals & np.uint64(0xFFFFFFFF)).astype(np.int64)]
+            if ring.nl == 2:
+                limbs.append((vals >> np.uint64(32)).astype(np.int64))
+            canon = torch.from_numpy(np.stack(limbs, axis=-1)).to(dev)
+            self.matrix = mo.to_mont(ring.fq, canon)
+        else:
+            R = 1 << (32 * ring.nl)
+            vals = _sample_field(rng, ring.q, ring.nl, shape)
+            mont = np.vectorize(lambda v: int(v) * R % ring.q, otypes=[object])(vals)
+            self.matrix = torch.from_numpy(ring.fq.encode(mont).astype(np.int64)).to(dev)
+
+    @classmethod
+    def from_matrix(cls, ring: Ring, matrix: torch.Tensor):
+        """A scheme around an existing Montgomery matrix [kappa, n, c, e, nl]."""
+        self = cls.__new__(cls)
+        self.ring, self.kappa, self.n = ring, matrix.shape[0], matrix.shape[1]
+        self.matrix = matrix.contiguous()
+        return self
+
+    @classmethod
+    def identity_like(cls, ring: Ring, kappa: int, n: int, device=None):
+        """Deterministic A[i][j] = diag(i*n + j), the reference's test generator."""
+        R = 1 << (32 * ring.nl)
+        vals = np.zeros((kappa, n, ring.ncomp, ring.e), dtype=object)
+        for i in range(kappa):
+            for j in range(n):
+                vals[i, j, :, 0] = (i * n + j) % ring.q * R % ring.q
+        matrix = torch.from_numpy(ring.fq.encode(vals).astype(np.int64))
+        return cls.from_matrix(ring, matrix.to(resolve(device)))
+
+    def commit_device(self, f) -> torch.Tensor:
+        """f: [n, ncomp, e, nl] -> [kappa, ncomp, e, nl]."""
+        if f.shape[0] != self.n:
+            raise ValueError(f"witness length {f.shape[0]} != scheme width {self.n}")
+        return self.commit_batch(f[:, None])[:, 0]
+
+    def commit_batch(self, f) -> torch.Tensor:
+        """Batched commit: f [n, Nb, ...] -> [kappa, Nb, ...]."""
+        return mxu.ajtai_commit(self.ring, self.matrix, f)
+
+    def commit(self, f) -> Commitment:
+        return Commitment(self.ring, list(rops.to_host(self.ring, self.commit_device(f))))

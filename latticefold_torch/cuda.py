@@ -1,0 +1,149 @@
+"""Build, load and launch the port's hand-written CUDA kernels.
+
+Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into its
+own shared library with a plain C interface (no PyTorch headers, so a build
+takes seconds) and loaded with ``ctypes``. Builds happen at first use, one
+``nvcc`` process per source, all started together, into
+``latticefold_torch/_build/`` (listed in ``.gitignore``); a library is
+rebuilt when any source or header is newer than it.
+
+Every launcher returns the ``cudaGetLastError`` code of its launches and the
+wrappers raise when it is not 0. ``LAUNCHES`` counts launches per kernel:
+the wrappers in ``rings/ops.py`` and ``rings/mxu.py`` add one where they
+launch and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+
+import torch
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_HERE, "csrc")
+BUILD_DIR = os.path.join(_HERE, "_build")
+
+# kernel name -> source file
+SOURCES = {"crt": "crt_kernel.cu", "commit": "commit_kernel.cu"}
+
+_ARGTYPES = {
+    "crt": (
+        "lf_crt_apply",
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_uint64] * 4
+        + [ctypes.c_void_p],
+    ),
+    "commit": (
+        "lf_ajtai_commit",
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_uint64] * 4
+        + [ctypes.c_void_p],
+    ),
+}
+
+LAUNCHES = {name: 0 for name in SOURCES}
+BUILD_LOG: dict = {}  # kernel name -> nvcc's output (ptxas resource usage)
+
+_lock = threading.Lock()
+_libs: dict = {}
+
+
+def reset_launches():
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    return path
+
+
+def lib_path(name: str) -> str:
+    return os.path.join(BUILD_DIR, f"lib{name}.so")
+
+
+def _stale(name: str) -> bool:
+    out = lib_path(name)
+    if not os.path.exists(out):
+        return True
+    deps = [os.path.join(CSRC, f) for f in os.listdir(CSRC)]
+    return os.path.getmtime(out) < max(os.path.getmtime(p) for p in deps)
+
+
+def build(names=None) -> dict:
+    """Compile the stale kernels in parallel; returns {name: seconds}."""
+    names = list(SOURCES) if names is None else list(names)
+    todo = [n for n in names if _stale(n)]
+    if not todo:
+        return {}
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    t0 = time.perf_counter()
+    for name in todo:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [
+            nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+            "-O3", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",
+            "-o", tmp, os.path.join(CSRC, SOURCES[name]),
+        ]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        ))
+    seconds = {}
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
+        BUILD_LOG[name] = out
+        if proc.returncode != 0:
+            os.remove(tmp)
+            failed.append(f"{SOURCES[name]}:\n{out}")
+        else:
+            os.replace(tmp, lib_path(name))
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return seconds
+
+
+def kernel(name: str):
+    """The ctypes function of kernel ``name``, building its library if needed."""
+    with _lock:
+        if name not in _libs:
+            build([name])
+            lib = ctypes.CDLL(lib_path(name))
+            fn_name, argtypes = _ARGTYPES[name]
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _libs[name] = fn
+        return _libs[name]
+
+
+def check(code: int, name: str):
+    if code != 0:
+        raise RuntimeError(f"CUDA kernel {name!r} failed to launch: cudaError {code}")
+
+
+def stream_handle(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def field_constants(q: int):
+    """(q, -q^-1 mod 2^64, 2^64 mod q, 2^128 mod q) for the 64-bit kernels."""
+    return q, (-pow(q, -1, 1 << 64)) % (1 << 64), (1 << 64) % q, (1 << 128) % q
+
+
+def require_tensor(t, name: str, device):
+    if t.device != device or t.dtype != torch.int64 or not t.is_contiguous():
+        raise ValueError(
+            f"{name}: expected a contiguous int64 tensor on {device}, got "
+            f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})"
+        )

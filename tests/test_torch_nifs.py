@@ -1,0 +1,118 @@
+"""The port's NIFS fold against the JAX package's, on the fixture of
+tests/test_nifs.py::setup() (Goldilocks, DP_GOLDILOCKS, kappa = 4, seed 7).
+
+Both folds run once, in one test: the driver's xdist workers would each
+rerun a shared fixture, and the JAX fold is the expensive part. Tolerance:
+exact equality -- every value is an integer mod q, and the serialized proofs
+must be the same bytes."""
+
+import numpy as np
+
+import latticefold_torch.nifs as tnifs
+import latticefold_torch.nifs.folding as tfolding
+import latticefold_torch.nifs.linearization as tlinearization
+import latticefold_torch.rings.ops as trops
+import latticefold_tpu.nifs as nifs
+import latticefold_tpu.nifs.folding as folding
+import latticefold_tpu.nifs.linearization as linearization
+import latticefold_tpu.rings.ops as rops
+from latticefold_torch import convert
+from latticefold_torch.arith.ccs import CCCS as TCCCS
+from latticefold_torch.arith.ccs import CCS as TCCS
+from latticefold_torch.arith.ccs import get_test_r1cs as tget_test_r1cs
+from latticefold_torch.arith.ccs import get_test_z_split as tget_test_z_split
+from latticefold_torch.arith.witness import Witness as TWitness
+from latticefold_torch.commitment import AjtaiScheme as TScheme
+from latticefold_torch.params import DP_GOLDILOCKS as TDP
+from latticefold_torch.rings.construct import get_ring as tget_ring
+from latticefold_torch.transcript import Transcript as TTranscript
+from latticefold_tpu.arith.ccs import CCCS, CCS, get_test_r1cs, get_test_z_split
+from latticefold_tpu.arith.witness import Witness
+from latticefold_tpu.commitment import AjtaiScheme
+from latticefold_tpu.params import DP_GOLDILOCKS
+from latticefold_tpu.rings.construct import get_ring
+from latticefold_tpu.serialization import serialize_proof
+from latticefold_tpu.transcript import Transcript
+
+KAPPA = 4
+
+
+def _jax_fold():
+    dp = DP_GOLDILOCKS
+    ring = get_ring("goldilocks")
+    ccs = CCS.from_r1cs_padded(ring, get_test_r1cs(ring), W=4, L=dp.L)
+    _, x_ccs, w_host = get_test_z_split(ring, 3)
+    scheme = AjtaiScheme(ring, KAPPA, len(w_host) * dp.L, seed=7)
+    wit = Witness.from_w_ccs(ring, dp, rops.to_device(ring, w_host), n_pad=ccs.m)
+    cm_i = CCCS(cm=wit.commit(scheme), x_ccs=x_ccs)
+    acc, _ = linearization.prove(cm_i, wit, Transcript(ring), ccs)
+    folded, w0, proof = nifs.prove(acc, wit, cm_i, wit, Transcript(ring), ccs, scheme, dp)
+    return dict(ring=ring, ccs=ccs, scheme=scheme, wit=wit, cm_i=cm_i, acc=acc,
+                folded=folded, w0=w0, proof=proof)
+
+
+def _port_fold():
+    dp = TDP
+    ring = tget_ring("goldilocks")
+    ccs = TCCS.from_r1cs_padded(ring, tget_test_r1cs(ring), W=4, L=dp.L)
+    _, x_ccs, w_host = tget_test_z_split(ring, 3)
+    scheme = TScheme(ring, KAPPA, len(w_host) * dp.L, seed=7, device="cpu")
+    wit = TWitness.from_w_ccs(ring, dp, trops.to_device(ring, w_host, "cpu"), n_pad=ccs.m)
+    cm_i = TCCCS(cm=wit.commit(scheme), x_ccs=x_ccs)
+    acc, _ = tlinearization.prove(cm_i, wit, TTranscript(ring), ccs)
+    # keep the witness arrays: the prover consumes the decomposed ones only
+    arrays = {k: convert.to_numpy(getattr(wit, k)) for k in ("w_ccs", "f", "f_coeff", "f_hat")}
+    folded, w0, proof = tnifs.prove(acc, wit, cm_i, wit, TTranscript(ring), ccs, scheme, dp)
+    return dict(ring=ring, ccs=ccs, scheme=scheme, wit_arrays=arrays, cm_i=cm_i,
+                acc=acc, folded=folded, w0=w0, proof=proof)
+
+
+def test_port_fold_matches_jax():
+    j, p = _jax_fold(), _port_fold()
+    # inputs: the seeded Ajtai matrix, the witness pipeline, the commitment
+    assert np.array_equal(convert.to_numpy(p["scheme"].matrix), np.asarray(j["scheme"].matrix))
+    for k, arr in p["wit_arrays"].items():
+        assert np.array_equal(arr, np.asarray(getattr(j["wit"], k))), k
+    assert p["cm_i"].cm.vals == j["cm_i"].cm.vals
+    for f in ("r", "v", "u", "x_w", "h"):
+        assert getattr(p["acc"], f) == getattr(j["acc"], f), f
+
+    # every round message, v, u, theta and eta
+    jp, pp = j["proof"], p["proof"]
+    assert pp.linearization_proof.sumcheck.round_evals == jp.linearization_proof.sumcheck.round_evals
+    assert pp.linearization_proof.v == jp.linearization_proof.v
+    assert pp.linearization_proof.u == jp.linearization_proof.u
+    for side in ("decomposition_proof_l", "decomposition_proof_r"):
+        a, b = getattr(pp, side), getattr(jp, side)
+        assert (a.u_s, a.v_s, a.x_s) == (b.u_s, b.v_s, b.x_s), side
+        assert [y.vals for y in a.y_s] == [y.vals for y in b.y_s], side
+    assert pp.folding_proof.sumcheck.round_evals == jp.folding_proof.sumcheck.round_evals
+    assert pp.folding_proof.theta_s == jp.folding_proof.theta_s
+    assert pp.folding_proof.eta_s == jp.folding_proof.eta_s
+    assert serialize_proof(j["ring"], pp) == serialize_proof(j["ring"], jp)
+
+    # the folded accumulator and witness
+    assert p["folded"].cm.vals == j["folded"].cm.vals
+    assert (p["folded"].r, p["folded"].v, p["folded"].u) == (j["folded"].r, j["folded"].v, j["folded"].u)
+    assert np.array_equal(convert.to_numpy(p["w0"].f), np.asarray(j["w0"].f))
+
+    # the JAX verifier and the port's own both accept the port's proof
+    nifs.verify(j["acc"], j["cm_i"], pp, Transcript(j["ring"]), j["ccs"], DP_GOLDILOCKS)
+    folded_v = tnifs.verify(p["acc"], p["cm_i"], pp, TTranscript(p["ring"]), p["ccs"], TDP)
+    assert folded_v.cm == p["folded"].cm and folded_v.v == p["folded"].v
+    # the folded witness opens the folded commitment
+    assert p["w0"].commit(p["scheme"]) == p["folded"].cm
+
+
+def test_fold_witnesses_matches_jax_two_stage():
+    """The port's one form of fold_witnesses against the JAX package's
+    two-stage CPU form, at the fixture's shape (2K = 30 rows of 20 elements)."""
+    ring, tring = get_ring("goldilocks"), tget_ring("goldilocks")
+    rng = np.random.default_rng(29)
+    f_all = rng.integers(0, 1 << 32, size=(30, 20, ring.ncomp, ring.e, ring.nl), dtype=np.uint64)
+    f_all = f_all.astype(np.uint32)
+    f_all[..., -1] >>= 1  # below q
+    rhos = f_all[:, 0].copy()
+    want = np.asarray(folding.fold_witnesses(ring, f_all, rhos))
+    got = tfolding.fold_witnesses(tring, convert.tensor(f_all, "cpu"), convert.tensor(rhos, "cpu"))
+    assert np.array_equal(convert.to_numpy(got), want)
