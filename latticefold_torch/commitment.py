@@ -21,45 +21,31 @@ from .rings import ops as rops
 from .rings.construct import Ring
 
 
-def _sample_field(rng: np.random.Generator, q: int, nl: int, shape) -> np.ndarray:
-    """Uniform canonical-domain limbs via rejection sampling on q.bit_length() bits."""
-    total = int(np.prod(shape))
-    bits = q.bit_length()
-    out = np.empty(total, dtype=object)
-    filled = 0
-    while filled < total:
-        need = total - filled
-        raw = rng.integers(0, 1 << 32, size=(need + 7, (bits + 31) // 32), dtype=np.uint64)
-        vals = np.zeros(raw.shape[0], dtype=object)
-        for i in range(raw.shape[1]):
-            vals |= raw[:, i].astype(object) << (32 * i)
-        vals &= (1 << bits) - 1
-        ok = vals < q
-        acc = vals[ok][:need]
-        out[filled : filled + len(acc)] = acc
-        filled += len(acc)
-    return out.reshape(shape)
-
-
-def _sample_field_u64(rng: np.random.Generator, q: int, shape) -> np.ndarray:
-    """_sample_field for q < 2^64, bit-identical stream, pure u64 numpy."""
+def _sample_limbs(rng: np.random.Generator, q: int, nl: int, shape) -> np.ndarray:
+    """Uniform canonical F_q values as u32 limbs [*shape, nl], by rejection
+    sampling on q.bit_length() bits: the JAX package's numpy stream (draws of
+    ``words`` 32-bit values per candidate, need + 7 candidates a round),
+    compared with q limb by limb so no value is assembled as a Python int."""
     total = int(np.prod(shape))
     bits = q.bit_length()
     words = (bits + 31) // 32
-    mask = np.uint64((1 << bits) - 1)
-    out = np.empty(total, dtype=np.uint64)
+    q_limbs = [(q >> (32 * i)) & 0xFFFFFFFF for i in range(words)]
+    top_mask = np.uint64((1 << (bits - 32 * (words - 1))) - 1)
+    out = np.zeros((total, nl), dtype=np.uint32)
     filled = 0
     while filled < total:
         need = total - filled
         raw = rng.integers(0, 1 << 32, size=(need + 7, words), dtype=np.uint64)
-        vals = np.zeros(raw.shape[0], dtype=np.uint64)
-        for i in range(words):
-            vals |= raw[:, i] << np.uint64(32 * i)
-        vals &= mask
-        acc = vals[vals < q][:need]
-        out[filled : filled + len(acc)] = acc
+        raw[:, -1] &= top_mask
+        below = np.zeros(raw.shape[0], dtype=bool)
+        equal = np.ones(raw.shape[0], dtype=bool)
+        for i in range(words - 1, -1, -1):
+            below |= equal & (raw[:, i] < q_limbs[i])
+            equal &= raw[:, i] == q_limbs[i]
+        acc = raw[below][:need]
+        out[filled : filled + len(acc), :words] = acc
         filled += len(acc)
-    return out.reshape(shape)
+    return out.reshape(tuple(shape) + (nl,))
 
 
 class AjtaiScheme:
@@ -75,20 +61,8 @@ class AjtaiScheme:
         self.n = n
         rng = np.random.default_rng(np.random.PCG64(seed))
         shape = (kappa, n, ring.ncomp, ring.e)
-        if ring.nl <= 2:
-            # same rejection stream as _sample_field, assembled in u64 and
-            # Montgomery-encoded on the device
-            vals = _sample_field_u64(rng, ring.q, shape)
-            limbs = [(vals & np.uint64(0xFFFFFFFF)).astype(np.int64)]
-            if ring.nl == 2:
-                limbs.append((vals >> np.uint64(32)).astype(np.int64))
-            canon = torch.from_numpy(np.stack(limbs, axis=-1)).to(dev)
-            self.matrix = mo.to_mont(ring.fq, canon)
-        else:
-            R = 1 << (32 * ring.nl)
-            vals = _sample_field(rng, ring.q, ring.nl, shape)
-            mont = np.vectorize(lambda v: int(v) * R % ring.q, otypes=[object])(vals)
-            self.matrix = torch.from_numpy(ring.fq.encode(mont).astype(np.int64)).to(dev)
+        canon = torch.from_numpy(_sample_limbs(rng, ring.q, ring.nl, shape).astype(np.int64))
+        self.matrix = mo.to_mont(ring.fq, canon.to(dev))  # Montgomery-encoded on the device
 
     @classmethod
     def from_matrix(cls, ring: Ring, matrix: torch.Tensor):

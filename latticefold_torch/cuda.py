@@ -16,6 +16,7 @@ launch and nowhere else.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import shutil
 import subprocess
@@ -32,17 +33,10 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 # kernel name -> source file
 SOURCES = {"crt": "crt_kernel.cu", "commit": "commit_kernel.cu"}
 
+_U64P = ctypes.POINTER(ctypes.c_uint64)
 _ARGTYPES = {
-    "crt": (
-        "lf_crt_apply",
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_uint64] * 4
-        + [ctypes.c_void_p],
-    ),
-    "commit": (
-        "lf_ajtai_commit",
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_uint64] * 4
-        + [ctypes.c_void_p],
-    ),
+    "crt": ("lf_crt_apply", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [_U64P, ctypes.c_void_p]),
+    "commit": ("lf_ajtai_commit", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [_U64P, ctypes.c_void_p]),
 }
 
 LAUNCHES = {name: 0 for name in SOURCES}
@@ -136,9 +130,27 @@ def stream_handle(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def field_constants(q: int):
-    """(q, -q^-1 mod 2^64, 2^64 mod q, 2^128 mod q) for the 64-bit kernels."""
-    return q, (-pow(q, -1, 1 << 64)) % (1 << 64), (1 << 64) % q, (1 << 128) % q
+def _words(x: int, n: int) -> list:
+    return [(x >> (64 * i)) & ((1 << 64) - 1) for i in range(n)]
+
+
+@functools.lru_cache(maxsize=None)
+def field_constants(q: int, nl: int):
+    """The u64 words that the field type of limb width ``nl`` reads (``from``
+    in csrc/field32.cuh, field64.cuh, field256.cuh), as the ctypes array a
+    launcher takes."""
+    if nl == 1:  # q, -q^-1 mod 2^32, 2^64 mod q, 2^-32 mod q
+        words = [q, (-pow(q, -1, 1 << 32)) % (1 << 32), (1 << 64) % q, pow(1 << 32, -1, q)]
+    elif nl == 2:  # q, -q^-1 mod 2^64, 2^64 mod q, 2^128 mod q
+        words = [q, (-pow(q, -1, 1 << 64)) % (1 << 64), (1 << 64) % q, (1 << 128) % q]
+    elif nl == 8:  # q, -q^-1 mod 2^64, 2^256 mod q, 2^512 mod q
+        words = (
+            _words(q, 4) + [(-pow(q, -1, 1 << 64)) % (1 << 64)]
+            + _words((1 << 256) % q, 4) + _words((1 << 512) % q, 4)
+        )
+    else:
+        raise NotImplementedError(f"CUDA kernels: no field type for nl={nl} (built for nl = 1, 2, 8)")
+    return (ctypes.c_uint64 * len(words))(*words)
 
 
 def require_tensor(t, name: str, device):

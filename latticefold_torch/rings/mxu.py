@@ -32,8 +32,8 @@ def commit_plan(ring: Ring, kappa: int, n: int, Nb: int, sms: int):
     """(nchunks, chunk, TN): how pass 1 splits the sum over n across blocks
     of a card with ``sms`` SMs and how many n it stages per shared-memory
     tile."""
-    e = ring.e
-    tn = min(32, _SMEM_BYTES // (8 * e * (kappa + Nb)))
+    elem_bytes = 4 * ring.nl  # an F_q value in shared memory (u32, u64 or 4 x u64)
+    tn = min(32, _SMEM_BYTES // (elem_bytes * ring.e * (kappa + Nb)))
     if tn < 1:
         raise ValueError(f"commit kernel: kappa + Nb = {kappa + Nb} too large")
     nchunks = max(1, min(-(-n // tn), -(-_BLOCKS_PER_SM * sms // ring.ncomp)))
@@ -43,11 +43,9 @@ def commit_plan(ring: Ring, kappa: int, n: int, Nb: int, sms: int):
 
 
 def _commit_kernel(ring: Ring, matrix, f):
-    """Launch csrc/commit_kernel.cu (both passes) on CUDA tensors."""
-    if ring.nl != 2 or ring.e > 4:
-        raise NotImplementedError(
-            f"commit kernel: nl={ring.nl}, e={ring.e} (built for nl=2, e<=4)"
-        )
+    """Launch csrc/commit_kernel.cu (both passes) on CUDA tensors. An (nl, e)
+    without a template instance there makes the launcher return an error
+    code, which ``cuda.check`` raises."""
     dev = f.device
     kappa, n = matrix.shape[0], matrix.shape[1]
     Nb = f.shape[1]
@@ -59,7 +57,7 @@ def _commit_kernel(ring: Ring, matrix, f):
     nchunks, chunk, tn = commit_plan(ring, kappa, n, Nb, sms)
     S = 2 * ring.e - 1
     partial = torch.empty(
-        (nchunks, ring.ncomp, kappa * Nb, S, 3), dtype=torch.int64, device=dev
+        (nchunks, ring.ncomp, kappa * Nb, S, ring.nl), dtype=torch.int64, device=dev
     )
     out = torch.empty(
         (kappa, Nb, ring.ncomp, ring.e, ring.nl), dtype=torch.int64, device=dev
@@ -69,7 +67,7 @@ def _commit_kernel(ring: Ring, matrix, f):
     code = fn(
         matrix.data_ptr(), f.data_ptr(), 0 if red is None else red.data_ptr(),
         partial.data_ptr(), out.data_ptr(), kappa, n, Nb, ring.ncomp, ring.e,
-        nchunks, chunk, tn, *cuda.field_constants(ring.q),
+        ring.nl, nchunks, chunk, tn, cuda.field_constants(ring.q, ring.nl),
         cuda.stream_handle(dev),
     )
     cuda.check(code, "commit")

@@ -51,16 +51,14 @@ def mat_apply(m: mo.Modulus, M, x):
 
 def _transform_kernel(ring: Ring, which: str, x):
     """Launch csrc/crt_kernel.cu on x [N, d, nl] (CUDA) -> [N, d, nl]."""
-    if ring.nl != 2:
-        raise NotImplementedError(f"crt kernel: nl={ring.nl} (only nl=2 is built)")
     dev = x.device
     mat = _device_mat(ring, which, dev)
     cuda.require_tensor(x, "crt input", dev)
     out = torch.empty_like(x)
     fn = cuda.kernel("crt")
     code = fn(
-        x.data_ptr(), mat.data_ptr(), out.data_ptr(), x.shape[0], ring.d,
-        *cuda.field_constants(ring.q), cuda.stream_handle(dev),
+        x.data_ptr(), mat.data_ptr(), out.data_ptr(), x.shape[0], ring.d, ring.nl,
+        cuda.field_constants(ring.q, ring.nl), cuda.stream_handle(dev),
     )
     cuda.check(code, "crt")
     cuda.LAUNCHES["crt"] += 1

@@ -1,12 +1,21 @@
 """The port's NIFS fold against the JAX package's, on the fixture of
-tests/test_nifs.py::setup() (Goldilocks, DP_GOLDILOCKS, kappa = 4, seed 7).
+tests/test_nifs.py::setup() (kappa = 4, seed 7): Goldilocks at DP_GOLDILOCKS
+against the JAX prover, and BabyBear (DP_BABYBEAR) and Stark (DP_STARK_E2E)
+folded by the port alone -- its verifier accepts and the folded witness
+opens the folded commitment -- with their comparison against the JAX prover
+slow-marked, as the JAX package's own e2e tests of these two rings are (its
+fold of them runs eagerly on the CPU).
 
-Both folds run once, in one test: the driver's xdist workers would each
-rerun a shared fixture, and the JAX fold is the expensive part. Tolerance:
-exact equality -- every value is an integer mod q, and the serialized proofs
-must be the same bytes."""
+Both folds of a comparison run once, in one test: the driver's xdist workers
+would each rerun a shared fixture, and the JAX fold is the expensive part.
+Tolerance: exact equality -- every value is an integer mod q, and the
+serialized proofs must be the same bytes."""
 
+import contextlib
+
+import jax
 import numpy as np
+import pytest
 
 import latticefold_torch.nifs as tnifs
 import latticefold_torch.nifs.folding as tfolding
@@ -23,13 +32,13 @@ from latticefold_torch.arith.ccs import get_test_r1cs as tget_test_r1cs
 from latticefold_torch.arith.ccs import get_test_z_split as tget_test_z_split
 from latticefold_torch.arith.witness import Witness as TWitness
 from latticefold_torch.commitment import AjtaiScheme as TScheme
-from latticefold_torch.params import DP_GOLDILOCKS as TDP
+from latticefold_torch import params as tparams
 from latticefold_torch.rings.construct import get_ring as tget_ring
 from latticefold_torch.transcript import Transcript as TTranscript
 from latticefold_tpu.arith.ccs import CCCS, CCS, get_test_r1cs, get_test_z_split
 from latticefold_tpu.arith.witness import Witness
 from latticefold_tpu.commitment import AjtaiScheme
-from latticefold_tpu.params import DP_GOLDILOCKS
+from latticefold_tpu import params
 from latticefold_tpu.rings.construct import get_ring
 from latticefold_tpu.serialization import serialize_proof
 from latticefold_tpu.transcript import Transcript
@@ -37,9 +46,9 @@ from latticefold_tpu.transcript import Transcript
 KAPPA = 4
 
 
-def _jax_fold():
-    dp = DP_GOLDILOCKS
-    ring = get_ring("goldilocks")
+def _jax_fold(name="goldilocks", preset="DP_GOLDILOCKS"):
+    dp = getattr(params, preset)
+    ring = get_ring(name)
     ccs = CCS.from_r1cs_padded(ring, get_test_r1cs(ring), W=4, L=dp.L)
     _, x_ccs, w_host = get_test_z_split(ring, 3)
     scheme = AjtaiScheme(ring, KAPPA, len(w_host) * dp.L, seed=7)
@@ -51,9 +60,9 @@ def _jax_fold():
                 folded=folded, w0=w0, proof=proof)
 
 
-def _port_fold():
-    dp = TDP
-    ring = tget_ring("goldilocks")
+def _port_fold(name="goldilocks", preset="DP_GOLDILOCKS"):
+    dp = getattr(tparams, preset)
+    ring = tget_ring(name)
     ccs = TCCS.from_r1cs_padded(ring, tget_test_r1cs(ring), W=4, L=dp.L)
     _, x_ccs, w_host = tget_test_z_split(ring, 3)
     scheme = TScheme(ring, KAPPA, len(w_host) * dp.L, seed=7, device="cpu")
@@ -64,7 +73,16 @@ def _port_fold():
     arrays = {k: convert.to_numpy(getattr(wit, k)) for k in ("w_ccs", "f", "f_coeff", "f_hat")}
     folded, w0, proof = tnifs.prove(acc, wit, cm_i, wit, TTranscript(ring), ccs, scheme, dp)
     return dict(ring=ring, ccs=ccs, scheme=scheme, wit_arrays=arrays, cm_i=cm_i,
-                acc=acc, folded=folded, w0=w0, proof=proof)
+                acc=acc, folded=folded, w0=w0, proof=proof, dp=dp)
+
+
+def _check_port_accepts(p):
+    """The port's verifier accepts its proof and w0 opens the folded
+    commitment."""
+    folded_v = tnifs.verify(p["acc"], p["cm_i"], p["proof"], TTranscript(p["ring"]), p["ccs"], p["dp"])
+    assert folded_v.cm == p["folded"].cm and folded_v.v == p["folded"].v
+    assert (folded_v.r, folded_v.u) == (p["folded"].r, p["folded"].u)
+    assert p["w0"].commit(p["scheme"]) == p["folded"].cm
 
 
 def test_port_fold_matches_jax():
@@ -96,12 +114,34 @@ def test_port_fold_matches_jax():
     assert (p["folded"].r, p["folded"].v, p["folded"].u) == (j["folded"].r, j["folded"].v, j["folded"].u)
     assert np.array_equal(convert.to_numpy(p["w0"].f), np.asarray(j["w0"].f))
 
-    # the JAX verifier and the port's own both accept the port's proof
-    nifs.verify(j["acc"], j["cm_i"], pp, Transcript(j["ring"]), j["ccs"], DP_GOLDILOCKS)
-    folded_v = tnifs.verify(p["acc"], p["cm_i"], pp, TTranscript(p["ring"]), p["ccs"], TDP)
-    assert folded_v.cm == p["folded"].cm and folded_v.v == p["folded"].v
+    # the JAX verifier and the port's own both accept the port's proof, and
     # the folded witness opens the folded commitment
-    assert p["w0"].commit(p["scheme"]) == p["folded"].cm
+    nifs.verify(j["acc"], j["cm_i"], pp, Transcript(j["ring"]), j["ccs"], params.DP_GOLDILOCKS)
+    _check_port_accepts(p)
+
+
+@pytest.mark.parametrize("name,preset", [("babybear", "DP_BABYBEAR"), ("stark", "DP_STARK_E2E")])
+def test_port_small_fold_verifies(name, preset):
+    _check_port_accepts(_port_fold(name, preset))
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name,preset", [("babybear", "DP_BABYBEAR"), ("stark", "DP_STARK_E2E")])
+def test_port_fold_matches_jax_slow(name, preset):
+    """The port's proof is the JAX prover's, byte for byte, and the JAX
+    verifier accepts it. Stark's JAX fold runs eagerly, as
+    tests/test_nifs.py::test_nifs_e2e_stark runs it (its nl = 8 protocol
+    kernels do not compile in reasonable time on XLA:CPU)."""
+    p = _port_fold(name, preset)
+    ctx = jax.disable_jit() if name == "stark" else contextlib.nullcontext()
+    with ctx:
+        j = _jax_fold(name, preset)
+        nifs.verify(j["acc"], j["cm_i"], p["proof"], Transcript(j["ring"]), j["ccs"], getattr(params, preset))
+    assert p["cm_i"].cm.vals == j["cm_i"].cm.vals
+    assert serialize_proof(j["ring"], p["proof"]) == serialize_proof(j["ring"], j["proof"])
+    assert p["folded"].cm.vals == j["folded"].cm.vals
+    assert np.array_equal(convert.to_numpy(p["w0"].f), np.asarray(j["w0"].f))
+    _check_port_accepts(p)
 
 
 def test_fold_witnesses_matches_jax_two_stage():

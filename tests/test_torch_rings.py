@@ -2,8 +2,10 @@
 ring_mul / scalar_mul / const_mul, add / sub / sum, the host <-> device
 conversions, and the plain CRT/ICRT against the JAX package's
 streamed VPU path and its fused Pallas kernel (interpret mode on the CPU),
-at the shapes of tests/test_rings.py. The CRT kernel itself runs only on
-the card: chip_smoke.py holds it against the plain version there.
+at the shapes of tests/test_rings.py, and for every ring (Stark included) the
+plain CRT/ICRT against the JAX package's host oracle. The CRT kernel itself
+runs only on the card: chip_smoke.py holds it against the plain version
+there.
 
 Tolerance: exact equality of canonical limbs -- every result is an integer
 mod q."""
@@ -87,6 +89,25 @@ def test_crt_plain_matches_pallas_interpret(name):
     want = pallas_crt.crt(ring, coeffs)
     assert same(trops.crt(tring, t(coeffs)), want)
     assert same(trops.icrt(tring, t(np.asarray(want))), pallas_crt.icrt(ring, want))
+
+
+@pytest.mark.parametrize("name", RINGS)
+def test_crt_plain_matches_host_oracle(name):
+    """Every ring, Stark included, against the JAX package's host oracle
+    ``Ring.crt_host`` / ``icrt_host`` (Python integers, no XLA compile)."""
+    ring, tring = get_ring(name), tget_ring(name)
+    rng = np.random.default_rng(17)
+    N = 4
+    coeffs = rng.integers(0, 1 << 63, size=(N, ring.d), dtype=np.uint64).astype(object) % ring.q
+    R = 1 << (32 * ring.nl)
+    x = t(ring.fq.encode(np.vectorize(lambda v: int(v) * R % ring.q, otypes=[object])(coeffs)))
+    ntt = trops.crt(tring, x)  # [N, ncomp, e, nl]
+    assert list(trops.to_host(tring, ntt)) == [ring.crt_host([int(v) for v in c]) for c in coeffs]
+    back = tring.fq.decode(trops.icrt(tring, ntt).numpy())  # Montgomery ints [N, d]
+    rinv = pow(R, -1, ring.q)
+    for i in range(N):
+        want = ring.icrt_host(ring.crt_host([int(v) for v in coeffs[i]]))
+        assert [int(v) * rinv % ring.q for v in back[i]] == want == [int(v) for v in coeffs[i]]
 
 
 def test_cpu_tensors_never_launch_kernels():
