@@ -18,9 +18,24 @@ that the kernels run at its shapes (nl 2, e 4, d 16) on a path.
 Phases (any failure raises and the script exits non-zero):
 
 1. Print the card (name, and name + power limit from nvidia-smi), build
-   both CUDA kernels from ``latticefold_torch/csrc`` with nvcc (one process
+   every CUDA kernel from ``latticefold_torch/csrc`` with nvcc (one process
    per source, in parallel; every field-width instance is in them) and
    print the build seconds.
+1b. The byte-plane batch commit (``AjtaiScheme.commit_batch_fused``:
+   kernel A, the int8 tensor-core plane dot, once per 2^15-term slice, and
+   kernel B, the epilogue, once), driven with the launch counts reset just
+   before each call and checked just after:
+   - at bench.py's headline shape (Goldilocks, kappa 9, n 2^15, seed 1,
+     seeded witness batches Nb = 16 and 64): equal to ``commit_batch_cm``
+     (the commit kernel) and to the plain byte-plane route
+     (``mxu.ajtai_commit_cm``); kernels A and B each equal to their plain
+     versions; ms and commits/s of both routes, A's and B's ms and bounds;
+   - at each ring's fold commit shape (the fold phase's kappa, n = wit_len
+     L, Nb = K - 1): equal to the commit kernel, both routes timed;
+   - the TPU probes P1-P5 (``rings/plane_probes.py``) at their TPU shapes,
+     each equal to its plain version, timed beside its bound and, where one
+     PyTorch call computes the same function, that call (``torch._int_mm``
+     for the int8 dots it accepts, 8 calls for the 8-component dots).
 2. For each ring, hold each kernel against its plain PyTorch version on the
    card at the path's shapes: the CRT kernel as icrt at N = wit_len (the
    input witness), crt at N = n = wit_len * L (each digit witness) and icrt
@@ -44,8 +59,9 @@ Phases (any failure raises and the script exits non-zero):
    device memory is printed. One more Stark prove runs under the profiler
    (device busy s, device kernels, idle share; about 5 min in all, most of
    it spent stopping the profiler and reading ~3 million events).
-4. Print the ``kernels`` JSON line (one entry per kernel and ring), then the
-   card line, then the last line ``{"ok": true, "device": {...}}``.
+4. Print the ``kernels`` JSON line (one entry per kernel and ring, and per
+   kernel, mode and shape of phase 1b), then the card line, then the last
+   line ``{"ok": true, "device": {...}}``.
 
 Without a card, or without the ``latticefold_torch`` package beside it,
 the script exits non-zero and prints no result.
@@ -69,6 +85,8 @@ PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 # 67 TFLOP/s float32 rate counts an FMA as two operations; the card's integer
 # multiply-adds issue at no higher rate, so this bound is never too high
 PEAK_MAD32_PER_S = 33.5e12
+PEAK_INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core operations (a MAC is two)
+PEAK_BF16_OPS_PER_S = 989e12
 PLAIN_CHUNK_BYTES = 1 << 30  # largest product tensor of the chunked plain commit
 
 WIT_LEN = 4096
@@ -81,6 +99,9 @@ PATHS = {
     "stark": ("DP_STARK_E2E", 17, 1),
 }
 PROFILED = "stark"  # the ring whose fold runs one more prove under the profiler
+# bench.py's headline commit (bench.py:114-151): ring, kappa, n, Ajtai seed, batches
+BENCH_COMMIT = ("goldilocks", 9, 1 << 15, 1, (16, 64))
+PROBE_C, PROBE_MPAD, PROBE_K = 8, 224, 1 << 15  # the probes' commit-dot shape
 
 
 def log(msg):
@@ -312,7 +333,7 @@ def run_fold(name, dp, scheme, reps, device, profile=False):
         folded, w0, proof = prove()
         torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = dict(cuda.LAUNCHES)
+    launches = {k: v for k, v in cuda.LAUNCHES.items() if v}  # and no other kernel
     log(f"[fold {name}] first prove {first_s:.3f} s (host sponge {sponge['s']:.3f} s); launches {launches}")
     expected = {"crt": 2 * dp.K + 1, "commit": 2}
     if launches != expected:
@@ -391,6 +412,280 @@ def profile_prove(name, prove):
     return out
 
 
+def roofline(n_bytes: int, ops: int, peak_ops: float = PEAK_INT8_OPS_PER_S) -> dict:
+    """Least time for work that moves ``n_bytes`` (each input read once,
+    each output written once) and does ``ops`` operations (a multiply-add
+    is two) at ``peak_ops`` per second: the larger of the two times."""
+    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = ops / peak_ops * 1e3
+    return dict(bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                bytes_ms=bytes_ms, ops_ms=ops_ms, ops=ops)
+
+
+def max_abs_err(what, got, want) -> int:
+    """0, or raise: ``got`` must equal the plain version's ``want`` exactly."""
+    import torch
+
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{what}: {got.dtype}{tuple(got.shape)} against the plain "
+                             f"version's {want.dtype}{tuple(want.shape)}")
+    err = int((got.double() - want.double()).abs().max().item())
+    if err:
+        raise AssertionError(f"{what}: differs from the plain version (max |err| {err})")
+    return err
+
+
+def counted(what, fn, expected: dict):
+    """Run ``fn`` once with every launch count set to 0 just before it and
+    read just after: the kernels of ``expected`` must have launched exactly
+    that often, and no other. Returns (fn's result, the counts)."""
+    import torch
+
+    from latticefold_torch import cuda
+
+    cuda.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+    if launches != expected:
+        raise AssertionError(f"{what}: launches {launches}, expected {expected}")
+    return out, launches
+
+
+def int_mm_ms(pairs, flush):
+    """ms of ``torch._int_mm`` over the (a, b) pairs, timed together, or None
+    where it does not take the shape (M > 16, K and N multiples of 8)."""
+    import torch
+
+    if not all(a.shape[0] > 16 and a.shape[1] % 8 == 0 and b.shape[1] % 8 == 0 for a, b in pairs):
+        return None
+    for a, b in pairs:
+        torch._int_mm(a, b)
+    return time_ms(lambda: [torch._int_mm(a, b) for a, b in pairs], 10, flush)
+
+
+def plane_commit_shape(label, name, kappa, n, Nb, seed, wseed, device, flush, with_route_plain):
+    """Phase 1b at one commit shape: ``commit_batch_fused`` counted and held
+    against ``commit_batch_cm``, kernels A and B against their plain
+    versions, every time. Returns (record, kernels JSON entries)."""
+    import torch
+
+    from latticefold_torch.commitment import AjtaiScheme
+    from latticefold_torch.rings import mxu
+    from latticefold_torch.rings import plane_commit as pc
+    from latticefold_torch.rings.construct import get_ring
+
+    ring = get_ring(name)
+    c, e, nl = ring.ncomp, ring.e, ring.nl
+    L = e * Nb * nl
+    scheme = AjtaiScheme(ring, kappa, n, seed=seed, device=device)
+    pre = scheme._fused_planes
+    fcm = rand_field(ring, (c, n, e, Nb), wseed, device)
+    slices = [(k0, min(n, k0 + pc._K_SLICE)) for k0 in range(0, n, pc._K_SLICE)]
+    got, launches = counted(f"commit_batch_fused [{label}]", lambda: scheme.commit_batch_fused(fcm),
+                            {"plane_dot": len(slices), "plane_epilogue": 1})
+    if (got != scheme.commit_batch_cm(fcm)).any():
+        raise AssertionError(f"commit_batch_fused [{label}] differs from commit_batch_cm (the commit kernel)")
+    rec = dict(ring=name, kappa=kappa, n=n, Nb=Nb, launches=launches)
+    if with_route_plain:
+        planes = mxu.ajtai_precompute(ring, scheme.matrix)
+        if (got != mxu.ajtai_commit_cm(ring, planes, fcm)).any():
+            raise AssertionError(f"commit_batch_fused [{label}] differs from the plain byte-plane route")
+        rec["route_plain_ms"] = time_ms(lambda: mxu.ajtai_commit_cm(ring, planes, fcm), 2, flush)
+        del planes
+    rec["fused_ms"] = time_ms(lambda: scheme.commit_batch_fused(fcm), 20, flush)
+    rec["cm_ms"] = time_ms(lambda: scheme.commit_batch_cm(fcm), 10, flush)
+    rec["fused_commits_per_s"] = Nb / (rec["fused_ms"] / 1e3)
+    rec["cm_commits_per_s"] = Nb / (rec["cm_ms"] / 1e3)
+    rows = pre.rows
+    mpad = pre.lhs_i8.shape[1]
+    out_bytes = kappa * Nb * c * e * nl * 4
+    rec["route_bound"] = roofline(c * rows * n + n * Nb * c * e * nl * 4 + out_bytes,
+                                   2 * c * rows * n * 4 * L)
+    rec["cm_bound"] = bound(ring, (kappa * n + n * Nb + kappa * Nb) * c * e, kappa * Nb * c * n * e**2)
+
+    # kernel A per slice, and kernel B, each against its plain version
+    w2d = fcm.reshape(c, n, L)
+    P = torch.stack([pc.plane_dot(pre.lhs_i8[:, :, a:b], w2d[:, a:b]) for a, b in slices])
+    for si, (a, b) in enumerate(slices):
+        max_abs_err(f"plane_dot [{label}] slice {si}", P[si], pc.plane_dot_plain(pre.lhs_i8[:, :, a:b], w2d[:, a:b]))
+    ks = slices[0][1]
+    lhs0, w0 = pre.lhs_i8[:, :, :ks], w2d[:, :ks]
+    kern_a = dict(max_abs_err=0, ms=time_ms(lambda: pc.plane_dot(lhs0, w0), 20, flush),
+                  plain_ms=time_ms(lambda: pc.plane_dot_plain(lhs0, w0), 2, flush),
+                  **roofline(c * mpad * ks + c * ks * L * 4 + c * mpad * 4 * L * 4, 2 * c * mpad * ks * 4 * L))
+    planes_i8 = pc._signed_planes(w0, "full").to(torch.int8)
+    kern_a["library_ms"] = int_mm_ms([(lhs0[ci], planes_i8[ci]) for ci in range(c)], flush)
+    del planes_i8
+    B = pc.epilogue(ring, P, pre.sM, rows, n, Nb)
+    if (B != got).any():
+        raise AssertionError(f"plane_epilogue [{label}] differs from commit_batch_fused's result")
+    max_abs_err(f"plane_epilogue [{label}]", B, pc.epilogue_plain(ring, P, pre.sM, rows, n, Nb))
+    items = c * kappa * Nb * e * e
+    kern_b = dict(max_abs_err=0, ms=time_ms(lambda: pc.epilogue(ring, P, pre.sM, rows, n, Nb), 20, flush),
+                  plain_ms=time_ms(lambda: pc.epilogue_plain(ring, P, pre.sM, rows, n, Nb), 2, flush),
+                  library_ms=None,
+                  # bytes: the rows it reads of P, sM, the output; operations: the
+                  # 32-bit multiply-adds of the wide REDCs and the fold's products
+                  **roofline(len(slices) * c * (rows + 1) * 4 * L * 4 + c * len(slices) * mpad * 4 + out_bytes,
+                             items * (nl + 1) * nl + c * kappa * Nb * e * (e - 1) * 2 * nl * nl,
+                             PEAK_MAD32_PER_S))
+    rec.update(plane_dot=kern_a, plane_epilogue=kern_b)
+    log(f"[plane commit {label}] {name} kappa={kappa} n={n} Nb={Nb}: fused {rec['fused_ms']:.4f} ms "
+        f"({rec['fused_commits_per_s']:.1f} commits/s, bound {rec['route_bound']['bound_ms']:.4f} ms "
+        f"{rec['route_bound']['bound_by']}), commit kernel {rec['cm_ms']:.4f} ms "
+        f"({rec['cm_commits_per_s']:.1f} commits/s, bound {rec['cm_bound']['bound_ms']:.4f} ms); "
+        f"A {kern_a['ms']:.4f} ms (bound {kern_a['bound_ms']:.4f} {kern_a['bound_by']}, plain "
+        f"{kern_a['plain_ms']:.2f}, _int_mm {kern_a['library_ms']}), B {kern_b['ms']:.4f} ms "
+        f"(bound {kern_b['bound_ms']:.4f}, plain {kern_b['plain_ms']:.2f}); launches {launches}; "
+        f"equal to the commit kernel{' and the plain route' if with_route_plain else ''}")
+    entries = []
+    for key, r in (("plane_dot", kern_a), ("plane_epilogue", kern_b)):
+        entries.append(dict(KERNEL_INFO[key], name=f"{KERNEL_INFO[key]['name']}[{label}]",
+                            launches=launches[key], max_abs_err=r["max_abs_err"], ms=r["ms"],
+                            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                            library_ms=r["library_ms"], shape=f"{name} kappa={kappa} n={n} Nb={Nb}"))
+    return rec, entries
+
+
+def check_plane_commit(device):
+    """Phase 1b, the batch commit: bench.py's shape, then each ring's fold
+    commit shape."""
+    import torch
+
+    from latticefold_torch import params
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    record, entries = {}, []
+    name, kappa, n, seed, batches = BENCH_COMMIT
+    for Nb in batches:
+        rec, ent = plane_commit_shape(f"bench b{Nb}", name, kappa, n, Nb, seed, 100 + Nb, device, flush, True)
+        record[f"bench b{Nb}"] = rec
+        entries += ent
+        torch.cuda.empty_cache()
+    for name, (preset, kappa, _) in PATHS.items():
+        dp = getattr(params, preset)
+        rec, ent = plane_commit_shape(f"{name} fold", name, kappa, WIT_LEN * dp.L, dp.K - 1, 7, 3, device,
+                                      flush, False)
+        record[f"{name} fold"] = rec
+        entries += ent
+        torch.cuda.empty_cache()
+    return record, entries
+
+
+def probe_case(label, kernel, fn, plain, flush, n_bytes, ops, peak_ops=PEAK_INT8_OPS_PER_S, library=None):
+    """One probe: counted run (one launch of ``kernel``), exact against the
+    plain version, timed beside its bound and the library call."""
+    got, launches = counted(label, fn, {kernel: 1})
+    err = max_abs_err(label, got, plain())
+    r = dict(max_abs_err=err, launches=launches[kernel], ms=time_ms(fn, 20, flush),
+             plain_ms=time_ms(plain, 2, flush), library_ms=library() if library else None,
+             **roofline(n_bytes, ops, peak_ops))
+    extra = ""
+    if ops == 0:
+        r["gb_per_s"] = n_bytes / (r["ms"] / 1e3) / 1e9
+        extra = f", {r['gb_per_s']:.1f} GB/s of {PEAK_BYTES_PER_S / 1e9:.0f}"
+    log(f"[probe {label}] {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} {r['bound_by']}{extra}), plain "
+        f"{r['plain_ms']:.3f} ms, library {r['library_ms']}; exact")
+    return r
+
+
+def check_probes(device):
+    """Phase 1b, the TPU probes P1-P5 at their TPU shapes."""
+    import torch
+
+    from latticefold_torch.rings import plane_commit as pc
+    from latticefold_torch.rings import plane_probes as pp
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+
+    def i8(*shape):
+        return torch.randint(-128, 128, shape, dtype=torch.int8, device=device, generator=gen)
+
+    def u8(*shape):
+        return torch.randint(0, 256, shape, dtype=torch.uint8, device=device, generator=gen)
+
+    def u32(*shape):
+        return torch.randint(0, 1 << 32, shape, dtype=torch.int64, device=device, generator=gen).to(torch.int32)
+
+    C, M, K = PROBE_C, PROBE_MPAD, PROBE_K
+    cases = {}
+    for Nb in (16, 64):
+        L = 3 * Nb * 2
+        a, w = i8(C, M, K), u32(C, K, L)
+        at = a.transpose(1, 2).contiguous()
+        planes = pc._signed_planes(w, "full").to(torch.int8)
+        fake = pc._signed_planes(w, "dot_only").to(torch.int8)
+        dot_bytes = C * M * K + C * K * L * 4 + C * M * 4 * L * 4
+        dot_ops = 2 * C * M * K * 4 * L
+        lib = lambda p: int_mm_ms([(a[ci], p[ci]) for ci in range(C)], flush)  # noqa: E731
+        tag = f"L={L}"
+        cases[f"P1 v1/v2 {tag}"] = probe_case(
+            f"P1 v1/v2 {tag}", "plane_dot", lambda: pp.plane_dot(a, w), lambda: pc.plane_dot_plain(a, w),
+            flush, dot_bytes, dot_ops, library=lambda: lib(planes))
+        cases[f"P1 planes_only {tag}"] = probe_case(
+            f"P1 planes_only {tag}", "plane_dot", lambda: pp.plane_dot(a, w, "planes_only"),
+            lambda: pc.plane_dot_plain(a, w, "planes_only"), flush, C * K * L * 4 + C * M * 4 * L * 4, 0)
+        cases[f"P1 dot_only {tag}"] = probe_case(
+            f"P1 dot_only {tag}", "plane_dot", lambda: pp.plane_dot(a, w, "dot_only"),
+            lambda: pc.plane_dot_plain(a, w, "dot_only"), flush, dot_bytes, dot_ops, library=lambda: lib(fake))
+        cases[f"P2 batched {tag}"] = probe_case(
+            f"P2 batched {tag}", "plane_dot", lambda: pp.plane_dot(a, w), lambda: pc.plane_dot_plain(a, w),
+            flush, dot_bytes, dot_ops, library=lambda: lib(planes))
+        cases[f"P2 dma {tag}"] = probe_case(
+            f"P2 dma {tag}", "dma_checksum", lambda: pp.dma_checksum(a, w), lambda: pp.dma_checksum_plain(a, w),
+            flush, C * M * K + C * K * L * 4 + C * 4, 0)
+        cases[f"P3 kmajor {tag}"] = probe_case(
+            f"P3 kmajor {tag}", "plane_dot", lambda: pp.plane_dot(at, w, kmajor=True),
+            lambda: pc.plane_dot_plain(at, w, kmajor=True), flush, dot_bytes, dot_ops,
+            library=lambda: int_mm_ms([(at[ci].t(), planes[ci]) for ci in range(C)], flush))
+        cases[f"P3 dma {tag}"] = probe_case(
+            f"P3 dma {tag}", "dma_checksum", lambda: pp.dma_checksum(at, w), lambda: pp.dma_checksum_plain(at, w),
+            flush, C * M * K + C * K * L * 4 + C * 4, 0)
+        del a, w, at, planes, fake
+        torch.cuda.empty_cache()
+
+    def gemm(label, x, y, fn=pp.int_gemm, plain=pp.int_gemm_plain, peak=PEAK_INT8_OPS_PER_S, library=True):
+        (m, k), nn = x.shape, y.shape[1]
+        out_bytes = m * nn * 4
+        cases[label] = probe_case(
+            label, "int_gemm", lambda: fn(x, y), lambda: plain(x, y), flush,
+            m * k * x.element_size() + k * nn * y.element_size() + out_bytes, 2 * m * nn * k, peak,
+            library=(lambda: int_mm_ms([(x, y)], flush)) if library else None)
+
+    gemm("P4 i8exact s8 256x2048x256", i8(256, 2048), i8(2048, 256))
+    gemm("P4 i8exact u8 256x2048x256", u8(256, 2048), u8(2048, 256), library=False)
+    gemm("P4 i8exact s8 8x32768x128", i8(8, 1 << 15), i8(1 << 15, 128))
+    for nn in (384, 1536):
+        gemm(f"P4 dotspeed s8 1728x32768x{nn}", i8(1728, 1 << 15), i8(1 << 15, nn))
+    gemm("P5 dot_u8 128x256x128", u8(128, 256), u8(256, 128), library=False)
+    x, y = u8(128, 128), u8(128, 128)
+    gemm("P5 dot_u8_via_bf16 128x128x128", x, y, fn=pp.bf16_gemm, plain=pp.bf16_gemm_plain,
+         peak=PEAK_BF16_OPS_PER_S, library=False)
+    xb = u32(8, 128)
+    cases["P5 bitcast 8x128"] = probe_case(
+        "P5 bitcast 8x128", "bitcast", lambda: pp.bitcast_u8(xb), lambda: xb.view(torch.uint8), flush,
+        2 * xb.numel() * 4, 0, library=lambda: time_ms(lambda: xb.view(torch.uint8).clone(), 20, flush))
+    ym = u32(8, 16, 4)
+    cases["P5 merge 8x16x4"] = probe_case(
+        "P5 merge 8x16x4", "merge", lambda: pp.merge_minor(ym), lambda: ym.reshape(8, 64), flush,
+        2 * ym.numel() * 4, 0, library=lambda: time_ms(lambda: ym.reshape(8, 64).clone(), 20, flush))
+    entries = []
+    for label, r in cases.items():
+        key = PROBE_KERNEL[label.split()[0] + " " + label.split()[1]]
+        entries.append(dict(KERNEL_INFO[key], name=f"{KERNEL_INFO[key]['name']}[{label}]",
+                            replaces=PROBE_REPLACES[label.split()[0] + " " + label.split()[1]],
+                            launches=r["launches"], max_abs_err=r["max_abs_err"], ms=r["ms"],
+                            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                            library_ms=r["library_ms"], shape=label))
+    del flush
+    torch.cuda.empty_cache()
+    return cases, entries
+
+
 KERNEL_INFO = {
     "crt": dict(
         name="crt_kernel", route="cuda", source="latticefold_torch/csrc/crt_kernel.cu",
@@ -400,6 +695,41 @@ KERNEL_INFO = {
         name="commit_kernel", route="cuda", source="latticefold_torch/csrc/commit_kernel.cu",
         replaces="latticefold_tpu/rings/pallas_commit.py:136,179",
     ),
+    "plane_dot": dict(
+        name="plane_dot_kernel", route="cuda", source="latticefold_torch/csrc/plane_dot_kernel.cu",
+        replaces="latticefold_tpu/rings/pallas_commit.py:136",
+    ),
+    "plane_epilogue": dict(
+        name="plane_epilogue_kernel", route="cuda", source="latticefold_torch/csrc/plane_epilogue_kernel.cu",
+        replaces="latticefold_tpu/rings/pallas_commit.py:180",
+    ),
+    "int_gemm": dict(name="int_gemm_kernel", route="cuda", source="latticefold_torch/csrc/int_gemm_kernel.cu"),
+    "dma_checksum": dict(name="dma_checksum_kernel", route="cuda",
+                         source="latticefold_torch/csrc/probe_kernels.cu"),
+    "bitcast": dict(name="bitcast_u8_kernel", route="cuda", source="latticefold_torch/csrc/probe_kernels.cu"),
+    "merge": dict(name="merge_minor_kernel", route="cuda", source="latticefold_torch/csrc/probe_kernels.cu"),
+}
+# probe (the first two words of its label) -> its kernel, and the TPU kernel it replaces
+PROBE_KERNEL = {
+    "P1 v1/v2": "plane_dot", "P1 planes_only": "plane_dot", "P1 dot_only": "plane_dot",
+    "P2 batched": "plane_dot", "P2 dma": "dma_checksum", "P3 kmajor": "plane_dot", "P3 dma": "dma_checksum",
+    "P4 i8exact": "int_gemm", "P4 dotspeed": "int_gemm", "P5 dot_u8": "int_gemm",
+    "P5 dot_u8_via_bf16": "int_gemm", "P5 bitcast": "bitcast", "P5 merge": "merge",
+}
+PROBE_REPLACES = {
+    "P1 v1/v2": "benches/exp_r4_kvar.py:60,74",
+    "P1 planes_only": "benches/exp_r4_kvar.py:88",
+    "P1 dot_only": "benches/exp_r4_kvar.py:102",
+    "P2 batched": "benches/exp_r4_kvar2.py:43",
+    "P2 dma": "benches/exp_r4_kvar2.py:58",
+    "P3 kmajor": "benches/exp_r4_kvar3.py:54",
+    "P3 dma": "benches/exp_r4_kvar3.py:68",
+    "P4 i8exact": "benches/exp_r4_probe.py:72,97,118",
+    "P4 dotspeed": "benches/exp_r4_probe.py:193",
+    "P5 dot_u8": "benches/exp_pallas_probe.py:52",
+    "P5 dot_u8_via_bf16": "benches/exp_pallas_probe.py:71",
+    "P5 bitcast": "benches/exp_pallas_probe.py:32",
+    "P5 merge": "benches/exp_pallas_probe.py:93",
 }
 
 
@@ -454,7 +784,10 @@ def main() -> int:
             fh.write(f"== {k}\n{v}\n")
 
     record = dict(card=smi, wit_len=WIT_LEN, rings={})
-    entries = []
+    # phase 1b: the byte-plane batch commit and the probes
+    record["plane_commit"], entries = check_plane_commit(device)
+    record["probes"], probe_entries = check_probes(device)
+    entries += probe_entries
     # phases 2 and 3, one ring after the other
     for name, (preset, kappa, reps) in PATHS.items():
         dp = getattr(params, preset)

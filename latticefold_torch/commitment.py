@@ -4,11 +4,15 @@ The scheme is a public random kappa x n matrix over the NTT-form ring; a
 commitment is the ring matrix-vector product A f. The matrix is sampled on
 the host from the same seeded numpy stream as the JAX package's, so both
 packages hold the same matrix bit for bit. Every commit -- single or batched,
-at any width -- goes through ``rings.mxu.ajtai_commit``: the commit kernel
-on the card.
+at any width, and ``commit_batch_cm`` -- goes through
+``rings.mxu.ajtai_commit``: the commit kernel on the card.
+``commit_batch_fused`` computes the same limbs by the byte-plane route of
+``rings.plane_commit`` (int8 tensor-core planes); no fold path calls it.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -16,7 +20,7 @@ import torch
 from . import modops as mo
 from .arith.ccs import Commitment
 from .device import resolve
-from .rings import mxu
+from .rings import mxu, plane_commit
 from .rings import ops as rops
 from .rings.construct import Ring
 
@@ -92,6 +96,21 @@ class AjtaiScheme:
     def commit_batch(self, f) -> torch.Tensor:
         """Batched commit: f [n, Nb, ...] -> [kappa, Nb, ...]."""
         return mxu.ajtai_commit(self.ring, self.matrix, f)
+
+    def commit_batch_cm(self, fcm) -> torch.Tensor:
+        """Batched commit of a component-major witness batch
+        [ncomp, n, e, Nb, nl] -> [kappa, Nb, ncomp, e, nl]: the commit
+        kernel after a permute to [n, Nb, ncomp, e, nl]."""
+        return self.commit_batch(fcm.permute(1, 3, 0, 2, 4))
+
+    @functools.cached_property
+    def _fused_planes(self) -> plane_commit.FusedPlanes:
+        return plane_commit.precompute(self.ring, self.matrix)
+
+    def commit_batch_fused(self, fcm) -> torch.Tensor:
+        """``commit_batch_cm`` on the byte-plane route (kernels A and B of
+        ``rings/plane_commit.py``): the same limbs."""
+        return plane_commit.ajtai_commit_fused(self.ring, self._fused_planes, fcm)
 
     def commit(self, f) -> Commitment:
         return Commitment(self.ring, list(rops.to_host(self.ring, self.commit_device(f))))

@@ -9,8 +9,8 @@ rebuilt when any source or header is newer than it.
 
 Every launcher returns the ``cudaGetLastError`` code of its launches and the
 wrappers raise when it is not 0. ``LAUNCHES`` counts launches per kernel:
-the wrappers in ``rings/ops.py`` and ``rings/mxu.py`` add one where they
-launch and nowhere else.
+the wrappers in ``rings/ops.py``, ``rings/mxu.py``, ``rings/plane_commit.py``
+and ``rings/plane_probes.py`` add one where they launch and nowhere else.
 """
 
 from __future__ import annotations
@@ -30,20 +30,36 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 
-# kernel name -> source file
-SOURCES = {"crt": "crt_kernel.cu", "commit": "commit_kernel.cu"}
-
-_U64P = ctypes.POINTER(ctypes.c_uint64)
-_ARGTYPES = {
-    "crt": ("lf_crt_apply", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [_U64P, ctypes.c_void_p]),
-    "commit": ("lf_ajtai_commit", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [_U64P, ctypes.c_void_p]),
+# library name -> source file
+SOURCES = {
+    "crt": "crt_kernel.cu",
+    "commit": "commit_kernel.cu",
+    "plane_dot": "plane_dot_kernel.cu",
+    "plane_epilogue": "plane_epilogue_kernel.cu",
+    "int_gemm": "int_gemm_kernel.cu",
+    "probe": "probe_kernels.cu",
 }
 
-LAUNCHES = {name: 0 for name in SOURCES}
-BUILD_LOG: dict = {}  # kernel name -> nvcc's output (ptxas resource usage)
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_U64P = ctypes.POINTER(ctypes.c_uint64)
+# kernel name -> (library, C function, argument types)
+_ARGTYPES = {
+    "crt": ("crt", "lf_crt_apply", [_P] * 3 + [_I] * 3 + [_U64P, _P]),
+    "commit": ("commit", "lf_ajtai_commit", [_P] * 5 + [_I] * 9 + [_U64P, _P]),
+    "plane_dot": ("plane_dot", "lf_plane_dot", [_P, _LL, _LL, _P, _LL, _LL, _I, _P] + [_I] * 8 + [_P]),
+    "plane_epilogue": ("plane_epilogue", "lf_plane_epilogue", [_P] * 4 + [_I] * 11 + [_U64P, _P]),
+    "int_gemm": ("int_gemm", "lf_int_gemm", [_P, _LL, _P, _LL, _P, _LL] + [_I] * 6 + [_P]),
+    "dma_checksum": ("probe", "lf_dma_checksum", [_P, _LL, _P, _LL, _P, _I, _I, _P]),
+    "bitcast": ("probe", "lf_bitcast_u8", [_P, _LL, _P, _P]),
+    "merge": ("probe", "lf_merge_minor", [_P, _I, _I, _I, _P, _P]),
+}
+
+LAUNCHES = {name: 0 for name in _ARGTYPES}
+BUILD_LOG: dict = {}  # library name -> nvcc's output (ptxas resource usage)
 
 _lock = threading.Lock()
 _libs: dict = {}
+_fns: dict = {}
 
 
 def reset_launches():
@@ -110,15 +126,16 @@ def build(names=None) -> dict:
 def kernel(name: str):
     """The ctypes function of kernel ``name``, building its library if needed."""
     with _lock:
-        if name not in _libs:
-            build([name])
-            lib = ctypes.CDLL(lib_path(name))
-            fn_name, argtypes = _ARGTYPES[name]
-            fn = getattr(lib, fn_name)
+        if name not in _fns:
+            lib_name, fn_name, argtypes = _ARGTYPES[name]
+            if lib_name not in _libs:
+                build([lib_name])
+                _libs[lib_name] = ctypes.CDLL(lib_path(lib_name))
+            fn = getattr(_libs[lib_name], fn_name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            _libs[name] = fn
-        return _libs[name]
+            _fns[name] = fn
+        return _fns[name]
 
 
 def check(code: int, name: str):

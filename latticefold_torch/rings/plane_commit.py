@@ -1,0 +1,232 @@
+"""The byte-plane batch commit: the counterpart of the JAX package's fused
+Pallas commit, ``latticefold_tpu/rings/pallas_commit.py``.
+
+The same function as ``mxu.ajtai_commit_cm``, with the lhs prepared as
+there: the Ajtai matrix, premultiplied by 2^32 mod q, split into byte planes
+XOR 0x80 (signed int8, row r = (kappa e index) 4 nl + limb 4 + byte), rows
+padded to a multiple of 32 with one all-ones row at ``rows`` that gives the
+witness column sums, and per-slice row sums ``sM``. The contraction over n
+runs in slices of at most ``_K_SLICE`` terms:
+
+  1. ``plane_dot`` (kernel A, ``csrc/plane_dot_kernel.cu``; the port of
+     ``_fused_slice`` / ``_dot_kernel``): per slice and component,
+     P[m, byte L + word] = sum_k A_i8[m, k] * (int8)(byte of (W[k, word] ^
+     0x80808080)), the witness planes built in shared memory from the u32
+     words, never in device memory; int8 tensor-core MMA.
+  2. ``epilogue`` (kernel B, ``csrc/plane_epilogue_kernel.cu``; the port of
+     ``_epilogue_fused`` and ``mxu._ext_fold``): the unsigned-plane
+     corrections P + 128 colsum + 128 rowsum + 128^2 ks of every slice, the
+     plane pairs grouped by byte position, the base-256 carry, the wide
+     reduction by R2 = 2^(32 (nl + 1)) and the fold of y^(e+k) with m(y),
+     to [kappa, Nb, ncomp, e, nl] Montgomery limbs.
+
+On CUDA tensors the wrappers launch the kernels; on CPU tensors they run the
+plain versions beside them. Nothing falls back from one to the other, and an
+(nl, e) or mode without a kernel instance raises.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .. import cuda
+from .. import modops as mo
+from . import mxu, ops
+from .construct import Ring
+
+_K_SLICE = 1 << 15  # 255^2 * 2^15 < 2^31: exact int32 sums per slice
+MODES = {"full": 0, "planes_only": 1, "dot_only": 2}
+_BLOCKS_PER_SM = 8  # blocks to aim for on each SM (K splits make up the rest)
+_MIN_SPLIT_K = 256  # the least K a split takes
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+class FusedPlanes(NamedTuple):
+    lhs_i8: torch.Tensor  # [c, Mpad, n] int8 signed matrix planes (+ ones row)
+    sM: torch.Tensor  # [c, n_slices, Mpad] int32 per-slice row sums
+    rows: int  # true (unpadded) row count = kappa * e * 4 nl
+
+
+def precompute(ring: Ring, matrix) -> FusedPlanes:
+    """Montgomery Ajtai matrix [kappa, n, ncomp, e, nl] -> FusedPlanes, built
+    on the matrix's device."""
+    planes = mxu.ajtai_precompute(ring, matrix)  # [c, kappa e, n, 4 nl] uint8
+    c, ke, n, da = planes.shape
+    rows = ke * da
+    mpad = _round_up(rows + 1, 32)  # always one spare row for the ones row
+    lhs = torch.zeros((c, mpad, n), dtype=torch.int8, device=planes.device)
+    lhs[:, :rows] = (planes.movedim(-1, -2).reshape(c, rows, n) ^ 0x80).view(torch.int8)
+    lhs[:, rows] = 1
+    sM = torch.stack([lhs[:, :, k0 : k0 + _K_SLICE].sum(-1, dtype=torch.int32)
+                      for k0 in range(0, n, _K_SLICE)], dim=1)
+    return FusedPlanes(lhs, sM, rows)
+
+
+# ---------------------------------------------------------------------------
+# kernel A: the signed byte-plane dot of one slice
+# ---------------------------------------------------------------------------
+
+
+def _signed_planes(w, mode: str):
+    """w [c, K, L] (u32 words in int32 or int64 lanes) -> the int8 plane
+    values [c, K, 4 L] as int64, column = byte L + word. ``dot_only``: the
+    probe's fake planes, the low byte of each word (no XOR) for every byte."""
+    wu = w.long() & mo.MASK32
+    if mode == "dot_only":
+        parts = [wu & 0xFF] * 4
+    else:
+        x = wu ^ 0x80808080
+        parts = [(x >> (8 * b)) & 0xFF for b in range(4)]
+    return torch.cat(parts, dim=-1).to(torch.uint8).view(torch.int8).long()
+
+
+def plane_dot_plain(lhs, w, mode: str = "full", kmajor: bool = False):
+    """Plain version of ``plane_dot``. The dot runs in float64, exact: every
+    sum is below 2^53 (|A| <= 128, |plane| <= 128, K <= 2^15 per slice)."""
+    pi = _signed_planes(w, mode)
+    c, K, N = pi.shape
+    mpad = lhs.shape[2] if kmajor else lhs.shape[1]
+    if mode == "planes_only":
+        out = torch.zeros((c, mpad, N), dtype=torch.int32, device=pi.device)
+        out[:, 0] = pi.sum(1).to(torch.int32)
+        return out
+    a = lhs.transpose(1, 2) if kmajor else lhs
+    return torch.matmul(a.double(), pi.double()).to(torch.int32)
+
+
+def split_k(tiles: int, ks: int, sms: int) -> int:
+    """How many K splits a grid of ``tiles`` blocks per split takes (kernels
+    A and C): enough blocks for _BLOCKS_PER_SM on every SM, each split at
+    least _MIN_SPLIT_K deep."""
+    return max(1, min(-(-_BLOCKS_PER_SM * sms // tiles), ks // _MIN_SPLIT_K))
+
+
+def _plane_dot_kernel(lhs, w, mode: str, kmajor: bool):
+    dev = w.device
+    if lhs.device != dev or lhs.dtype != torch.int8 or lhs.stride(-1) != 1:
+        raise ValueError("plane_dot: lhs must be an int8 tensor on the witness's device with unit last stride")
+    if w.dtype not in (torch.int32, torch.int64) or w.stride(-1) != 1:
+        raise ValueError("plane_dot: w must hold u32 words in int32 or int64 lanes, unit last stride")
+    c, ks, L = w.shape
+    mpad = lhs.shape[2] if kmajor else lhs.shape[1]
+    if lhs.shape[0] != c or (lhs.shape[1] if kmajor else lhs.shape[2]) != ks:
+        raise ValueError(f"plane_dot: lhs {tuple(lhs.shape)} does not fit w {tuple(w.shape)}")
+    # blocks per split: 64 rows x 16 words, or 32 words for the plane sums
+    tiles = c * -(-L // 32) if mode == "planes_only" else c * -(-mpad // 64) * -(-L // 16)
+    ksplit = split_k(tiles, ks, torch.cuda.get_device_properties(dev).multi_processor_count)
+    zeroed = ksplit > 1 or mode == "planes_only"
+    out = (torch.zeros if zeroed else torch.empty)((c, mpad, 4 * L), dtype=torch.int32, device=dev)
+    vec = lhs.data_ptr() % 16 == 0 and lhs.stride(0) % 16 == 0 and lhs.stride(1) % 16 == 0
+    code = cuda.kernel("plane_dot")(
+        lhs.data_ptr(), lhs.stride(0), lhs.stride(1), w.data_ptr(), w.stride(0),
+        w.stride(1), w.element_size(), out.data_ptr(), c, mpad, ks, L, MODES[mode],
+        int(kmajor), ksplit, int(vec), cuda.stream_handle(dev),
+    )
+    cuda.check(code, "plane_dot")
+    cuda.LAUNCHES["plane_dot"] += 1
+    return out
+
+
+def plane_dot(lhs, w, mode: str = "full", kmajor: bool = False):
+    """Kernel A. lhs [c, Mpad, Ks] int8 (``kmajor``: [c, Ks, Mpad]), w
+    [c, Ks, L] u32 words (int32 or int64 lanes; strided views along c and
+    Ks are taken as they are) -> P [c, Mpad, 4 L] int32, column = byte L +
+    word. Modes: ``full`` (the K2 / P1 v1 and v2 / P2 batched function),
+    ``planes_only`` (row 0 = the plane column sums, other rows 0) and
+    ``dot_only`` (the dot on fake planes, the low byte of each word)."""
+    if mode not in MODES:
+        raise ValueError(f"plane_dot: no mode {mode!r} (modes: {', '.join(MODES)})")
+    if w.device.type == "cpu":
+        return plane_dot_plain(lhs, w, mode, kmajor)
+    return _plane_dot_kernel(lhs, w, mode, kmajor)
+
+
+# ---------------------------------------------------------------------------
+# kernel B: corrections, position grouping, carry, wide REDC, extension fold
+# ---------------------------------------------------------------------------
+
+
+def _slice_lengths(n: int):
+    return [min(n, k0 + _K_SLICE) - k0 for k0 in range(0, n, _K_SLICE)]
+
+
+def epilogue_plain(ring: Ring, P, sM, rows: int, n: int, Nb: int):
+    """Plain version of ``epilogue``: the JAX package's corrections and XLA
+    epilogue (``pallas_commit._commit_fused``), then ``mxu._ext_fold``."""
+    nl, e, c = ring.nl, ring.e, ring.ncomp
+    da = 4 * nl
+    lo = hi = 0
+    for si, ks in enumerate(_slice_lengths(n)):
+        p = P[si].long()
+        pu = p[:, :rows] + 128 * p[:, rows, None, :] + 128 * sM[:, si, :rows, None].long() + 128 * 128 * ks
+        lo = lo + (pu & 0xFFFF)
+        hi = hi + (pu >> 16)
+    # rows ke DA + i (i = limb 4 + byte); columns byte' L + word (o nl + l')
+    ke = rows // da
+    lo6 = lo.reshape(c, ke, da, 4, e * Nb, nl)
+    hi6 = hi.reshape(c, ke, da, 4, e * Nb, nl)
+    # [c, ke, DA(i), eNb, DB(j = l' 4 + byte')]: the layout of mxu._plane_dot
+    lo5 = lo6.permute(0, 1, 2, 4, 5, 3).reshape(c, ke, da, e * Nb, da)
+    hi5 = hi6.permute(0, 1, 2, 4, 5, 3).reshape(c, ke, da, e * Nb, da)
+    u = mxu._group_positions(lo5, hi5, da, da)
+    Pm = mxu._redc_wide(ring.fq, mxu._carry_pack(u, 2 * nl + 1))  # [c, ke, eNb, nl]
+    return mxu._ext_fold(ring, Pm, ke // e, Nb)
+
+
+def _epilogue_kernel(ring: Ring, P, sM, rows: int, n: int, Nb: int):
+    dev = P.device
+    if P.dtype != torch.int32 or sM.dtype != torch.int32 or sM.device != dev:
+        raise ValueError("epilogue: P and sM must be int32 tensors on one device")
+    P, sM = P.contiguous(), sM.contiguous()
+    nsl, c, mpad, four_l = P.shape
+    kappa = rows // (4 * ring.nl * ring.e)
+    if (c != ring.ncomp or four_l != 4 * ring.e * Nb * ring.nl or not 0 < rows < mpad
+            or nsl != len(_slice_lengths(n)) or tuple(sM.shape) != (c, nsl, mpad)):
+        raise ValueError(f"epilogue: P {tuple(P.shape)}, sM {tuple(sM.shape)} do not fit rows={rows}, "
+                         f"n={n}, Nb={Nb} of {ring.name}")
+    out = torch.empty((kappa, Nb, c, ring.e, ring.nl), dtype=torch.int64, device=dev)
+    red = ops.red_rows(ring, dev)
+    code = cuda.kernel("plane_epilogue")(
+        P.data_ptr(), sM.data_ptr(), 0 if red is None else red.data_ptr(), out.data_ptr(),
+        nsl, c, mpad, four_l // 4, rows, kappa, Nb, ring.e, ring.nl, n, _K_SLICE,
+        cuda.field_constants(ring.q, ring.nl), cuda.stream_handle(dev),
+    )
+    cuda.check(code, "plane_epilogue")
+    cuda.LAUNCHES["plane_epilogue"] += 1
+    return out
+
+
+def epilogue(ring: Ring, P, sM, rows: int, n: int, Nb: int):
+    """Kernel B. P [n_slices, c, Mpad, 4 L] int32 (kernel A's output per
+    slice), sM [c, n_slices, Mpad] int32 -> [kappa, Nb, c, e, nl] Montgomery
+    limbs (int64 lanes)."""
+    if P.device.type == "cpu":
+        return epilogue_plain(ring, P, sM, rows, n, Nb)
+    return _epilogue_kernel(ring, P, sM, rows, n, Nb)
+
+
+# ---------------------------------------------------------------------------
+# the batch commit
+# ---------------------------------------------------------------------------
+
+
+def ajtai_commit_fused(ring: Ring, pre: FusedPlanes, fcm):
+    """The byte-plane batch commit, bit-identical to ``mxu.ajtai_commit_cm``.
+
+    fcm: [ncomp, n, e, Nb, nl] Montgomery component-major witness batch.
+    Returns [kappa, Nb, ncomp, e, nl]. One kernel A launch per slice of
+    ``_K_SLICE`` terms, then one kernel B launch."""
+    c, n, e, Nb, nl = fcm.shape
+    w2d = fcm.reshape(c, n, e * Nb * nl)
+    Ps = [plane_dot(pre.lhs_i8[:, :, k0 : k0 + _K_SLICE], w2d[:, k0 : k0 + _K_SLICE])
+          for k0 in range(0, n, _K_SLICE)]
+    P = Ps[0][None] if len(Ps) == 1 else torch.stack(Ps)
+    return epilogue(ring, P, pre.sM, pre.rows, n, Nb)
+
+
+__all__ = ["FusedPlanes", "precompute", "plane_dot", "epilogue", "ajtai_commit_fused"]

@@ -1,0 +1,127 @@
+"""latticefold_torch's counterparts of the TPU probes P1-P5
+(rings/plane_probes.py, and kernel A's modes in rings/plane_commit.py)
+against numpy int64 references, on the CPU, where each function runs its
+kernel's plain version. The probes' bench scripts are not imported (they
+reconfigure JAX when imported); their kernels' functions are restated here
+in numpy. The kernels themselves run only on the card, where chip_smoke.py
+holds them against these plain versions at the TPU shapes.
+
+Tolerance: exact equality (0) -- every value is an integer (the bf16 probe's
+float32 sums are integers below 2^24)."""
+
+import numpy as np
+import pytest
+import torch
+
+from latticefold_torch.rings import plane_commit as tpc
+from latticefold_torch.rings import plane_probes as pp
+
+C, M, K, L = 2, 32, 300, 20  # a ragged K and a word count not a multiple of 16
+
+
+@pytest.fixture(scope="module")
+def dot_inputs():
+    rng = np.random.default_rng(0)
+    a = rng.integers(-128, 128, size=(C, M, K)).astype(np.int8)
+    w = rng.integers(0, 1 << 32, size=(C, K, L), dtype=np.uint64).astype(np.uint32)
+    return a, w
+
+
+def np_planes(w, fake=False):
+    """The probes' planes: kern_v2 (XOR 0x80808080, then each byte as int8,
+    column = byte L + word) or kern_dot_only's fake planes (the low byte of
+    each word, four times)."""
+    if fake:
+        return np.concatenate([w.astype(np.uint8).view(np.int8)] * 4, axis=-1).astype(np.int64)
+    x = w ^ np.uint32(0x80808080)
+    parts = [((x >> (8 * b)) & 0xFF).astype(np.uint8).view(np.int8) for b in range(4)]
+    return np.concatenate(parts, axis=-1).astype(np.int64)
+
+
+def t32(w):
+    return torch.from_numpy(w.view(np.int32).copy())
+
+
+def test_v1_and_v2_planes_are_one_function(dot_inputs):
+    """kern_v1 ((byte - 128) as int8) and kern_v2 (XOR, truncating cast)
+    give the same planes, so one kernel mode serves both."""
+    _, w = dot_inputs
+    v1 = np.concatenate([((w >> (8 * b)) & 0xFF).astype(np.int64) - 128 for b in range(4)], axis=-1)
+    assert np.array_equal(v1, np_planes(w))
+    assert np.array_equal(tpc._signed_planes(t32(w), "full").numpy(), v1)
+
+
+@pytest.mark.parametrize("kmajor", [False, True])
+def test_plane_dot_full_matches_int64(dot_inputs, kmajor):
+    a, w = dot_inputs
+    want = np.einsum("cmk,ckn->cmn", a.astype(np.int64), np_planes(w))
+    lhs = np.ascontiguousarray(a.transpose(0, 2, 1)) if kmajor else a
+    got = tpc.plane_dot(torch.from_numpy(lhs), t32(w), kmajor=kmajor)
+    assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
+    # the same function on int64 limb lanes, the commit's witness layout
+    got64 = tpc.plane_dot(torch.from_numpy(lhs), torch.from_numpy(w.astype(np.int64)), kmajor=kmajor)
+    assert torch.equal(got64, got)
+
+
+def test_plane_dot_planes_only_matches_int64(dot_inputs):
+    a, w = dot_inputs
+    want = np.zeros((C, M, 4 * L), dtype=np.int64)
+    want[:, 0] = np_planes(w).sum(axis=1)
+    got = tpc.plane_dot(torch.from_numpy(a), t32(w), "planes_only")
+    assert np.array_equal(got.numpy(), want)
+
+
+def test_plane_dot_dot_only_matches_int64(dot_inputs):
+    a, w = dot_inputs
+    want = np.einsum("cmk,ckn->cmn", a.astype(np.int64), np_planes(w, fake=True))
+    got = tpc.plane_dot(torch.from_numpy(a), t32(w), "dot_only")
+    assert np.array_equal(got.numpy(), want)
+
+
+def test_dma_checksum_matches_int64(dot_inputs):
+    a, w = dot_inputs
+    want = (a.reshape(C, -1).astype(np.int64).sum(1) + w.reshape(C, -1).astype(np.int64).sum(1)) % (1 << 32)
+    got = pp.dma_checksum(torch.from_numpy(a), t32(w))
+    assert np.array_equal(got.numpy(), want)
+    # the layout of A does not change the checksum (P2's and P3's DMA rows)
+    at = np.ascontiguousarray(a.transpose(0, 2, 1))
+    assert torch.equal(pp.dma_checksum(torch.from_numpy(at), t32(w)), got)
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((256, 2048, 256), np.int8),  # probe_i8exact
+    ((256, 2048, 256), np.uint8),
+    ((8, 1 << 15, 128), np.int8),  # probe_i8exact at the commit's K
+    ((128, 256, 128), np.uint8),  # exp_pallas_probe dot_u8
+])
+def test_int_gemm_matches_int64(shape, dtype):
+    m, k, n = shape
+    rng = np.random.default_rng(m + k + n)
+    lo, hi = (-128, 128) if dtype == np.int8 else (0, 256)
+    a = rng.integers(lo, hi, size=(m, k)).astype(dtype)
+    b = rng.integers(lo, hi, size=(k, n)).astype(dtype)
+    got = pp.int_gemm(torch.from_numpy(a), torch.from_numpy(b))
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), a.astype(np.int64) @ b.astype(np.int64))
+
+
+def test_bf16_gemm_of_u8_is_exact_at_k128():
+    rng = np.random.default_rng(3)
+    a = rng.integers(0, 255, size=(128, 128)).astype(np.uint8)
+    b = rng.integers(0, 255, size=(128, 128)).astype(np.uint8)
+    got = pp.bf16_gemm(torch.from_numpy(a), torch.from_numpy(b))
+    assert got.dtype == torch.float32
+    assert np.array_equal(got.numpy().astype(np.int64), a.astype(np.int64) @ b.astype(np.int64))
+
+
+def test_bitcast_and_merge_are_byte_exact():
+    rng = np.random.default_rng(4)
+    x = rng.integers(0, 1 << 32, size=(8, 128), dtype=np.uint64).astype(np.uint32)
+    assert np.array_equal(pp.bitcast_u8(t32(x)).numpy(), x.view(np.uint8).reshape(8, 512))
+    y = rng.integers(0, 1 << 32, size=(8, 16, 4), dtype=np.uint64).astype(np.uint32)
+    assert np.array_equal(pp.merge_minor(t32(y)).numpy().view(np.uint32), y.reshape(8, 64))
+
+
+def test_gemm_refuses_mixed_types():
+    with pytest.raises(ValueError, match="int8 or uint8"):
+        pp.int_gemm(torch.zeros((2, 2), dtype=torch.int8), torch.zeros((2, 2), dtype=torch.uint8))
