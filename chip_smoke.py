@@ -21,21 +21,24 @@ Phases (any failure raises and the script exits non-zero):
    every CUDA kernel from ``latticefold_torch/csrc`` with nvcc (one process
    per source, in parallel; every field-width instance is in them) and
    print the build seconds.
-1b. The byte-plane batch commit (``AjtaiScheme.commit_batch_fused``:
-   kernel A, the int8 tensor-core plane dot, once per 2^15-term slice, and
-   kernel B, the epilogue, once), driven with the launch counts reset just
-   before each call and checked just after:
+1b. The byte-plane batch commit (``AjtaiScheme.commit_batch_fused``, the
+   fold's batch commit: kernel A's Hopper dot ``plane_dot_sm90_kernel.cu``
+   once per 2^15-term slice, and kernel B, the epilogue, once), driven with
+   the launch counts reset just before each call and checked just after:
    - at bench.py's headline shape (Goldilocks, kappa 9, n 2^15, seed 1,
-     seeded witness batches Nb = 16 and 64): equal to ``commit_batch_cm``
-     (the commit kernel) and to the plain byte-plane route
-     (``mxu.ajtai_commit_cm``); kernels A and B each equal to their plain
-     versions; ms and commits/s of both routes, A's and B's ms and bounds;
-   - at each ring's fold commit shape (the fold phase's kappa, n = wit_len
-     L, Nb = K - 1): equal to the commit kernel, both routes timed;
+     seeded witness batches Nb = 16 and 64) and at each ring's fold commit
+     shape (the fold phase's kappa, n = wit_len L, Nb = K - 1): equal to
+     ``commit_batch_cm`` (the commit kernel) and, at bench.py's shape, to
+     the plain byte-plane route (``mxu.ajtai_commit_cm``); the Hopper dot,
+     the mma.sync dot and kernel B each equal to their plain versions; ms
+     and commits/s of both routes; the Hopper dot's ms (twice) beside the
+     mma.sync dot's from the same call, its bound (4 B a word), its lane
+     floor (8 B a word, the int64 limb lanes it reads) and ``_int_mm``;
    - the TPU probes P1-P5 (``rings/plane_probes.py``) at their TPU shapes,
      each equal to its plain version, timed beside its bound and, where one
      PyTorch call computes the same function, that call (``torch._int_mm``
-     for the int8 dots it accepts, 8 calls for the 8-component dots).
+     for the int8 dots it accepts, 8 calls for the 8-component dots); P1 v1
+     runs the mma.sync dot, P1 v2 and P2 batched the Hopper dot.
 2. For each ring, hold each kernel against its plain PyTorch version on the
    card at the path's shapes: the CRT kernel as icrt at N = wit_len (the
    input witness), crt at N = n = wit_len * L (each digit witness) and icrt
@@ -50,18 +53,22 @@ Phases (any failure raises and the script exits non-zero):
    limb products per F_q product) over the card's 32-bit rate outside the
    tensor cores.
 3. For each ring's fold: one prove with the launch counts reset just before
-   it (crt 2K + 1 and commit 2 launches per prove, checked), timing the
-   host transcript sponge; the port's verifier must accept its proof and
-   the folded witness must open the folded commitment; then the timed
-   proves, which must give the same proof; and the tests' small fixture
+   it (crt 2K + 1, the Hopper dot 2 and the epilogue 2 launches per prove,
+   and no other kernel: the commit kernel 0; checked), timing the host
+   transcript sponge; the port's verifier must accept its proof and the
+   folded witness must open the folded commitment; then the timed proves,
+   which must give the same proof; one decomposition batch committed by
+   the commit kernel must give the proof's batch commitments; the tests'
+   small fixture
    folded on the card must give the same proof as on the CPU. The native
    (C++) Poseidon sponge must have built for the rings with q < 2^64. Peak
    device memory is printed. One more Stark prove runs under the profiler
    (device busy s, device kernels, idle share; about 5 min in all, most of
    it spent stopping the profiler and reading ~3 million events).
-4. Print the ``kernels`` JSON line (one entry per kernel and ring, and per
-   kernel, mode and shape of phase 1b), then the card line, then the last
-   line ``{"ok": true, "device": {...}}``.
+4. Print the ``kernels`` JSON line (one entry per kernel and ring, the
+   commit kernel marked off the main path, and per kernel, mode and shape
+   of phase 1b), then the card line, then the last line
+   ``{"ok": true, "device": {...}}``.
 
 Without a card, or without the ``latticefold_torch`` package beside it,
 the script exits non-zero and prints no result.
@@ -300,7 +307,9 @@ def run_fold(name, dp, scheme, reps, device, profile=False):
     from latticefold_torch.arith.ccs import CCCS, CCS, get_test_dummy_r1cs
     from latticefold_torch.arith.witness import Witness
     from latticefold_torch.native import NativeSponge
-    from latticefold_torch.rings import ops
+    from latticefold_torch.arith.ccs import Commitment
+    from latticefold_torch.nifs import decomposition
+    from latticefold_torch.rings import ops, plane_commit
     from latticefold_torch.transcript import Transcript
 
     ring = scheme.ring
@@ -324,7 +333,9 @@ def run_fold(name, dp, scheme, reps, device, profile=False):
         return nifs.prove(acc, wit, cm_i, wit, Transcript(ring), ccs, scheme, dp)
 
     # the main path, counted: every kernel of the path must launch in it,
-    # as often as the code says (2K crt + 1 icrt, 2 commits)
+    # as often as the code says (2K crt + 1 icrt; per decomposition batch
+    # commit one Hopper dot per 2^15-term slice and one epilogue), and no
+    # other (the commit kernel is the route's cross-check only)
     torch.cuda.reset_peak_memory_stats(device)
     cuda.reset_launches()
     sponge = {"s": 0.0}
@@ -335,7 +346,8 @@ def run_fold(name, dp, scheme, reps, device, profile=False):
     first_s = time.perf_counter() - t0
     launches = {k: v for k, v in cuda.LAUNCHES.items() if v}  # and no other kernel
     log(f"[fold {name}] first prove {first_s:.3f} s (host sponge {sponge['s']:.3f} s); launches {launches}")
-    expected = {"crt": 2 * dp.K + 1, "commit": 2}
+    slices = -(-scheme.n // plane_commit._K_SLICE)
+    expected = {"crt": 2 * dp.K + 1, "plane_dot_sm90": 2 * slices, "plane_epilogue": 2}
     if launches != expected:
         raise AssertionError(f"launches per prove {launches}, expected {expected}")
 
@@ -358,6 +370,17 @@ def run_fold(name, dp, scheme, reps, device, profile=False):
             raise AssertionError("a timed prove gave another proof")
     peak = torch.cuda.max_memory_allocated(device)
     log(f"[fold {name}] timed prove s {prove_s}; peak device memory {peak} B")
+
+    # one decomposition batch against the commit kernel: the digit witnesses
+    # of the prove's right side, committed by commit_batch, must give the
+    # commitments the byte-plane route put in the proof
+    wit_s = decomposition.decompose_witness(ring, dp, wit, ccs.m)
+    batch = torch.stack([w.f for w in wit_s[1:]], dim=1)  # n-major, as commit_batch takes it
+    cms = ops.to_host(ring, scheme.commit_batch(batch))
+    if [Commitment(ring, list(cms[:, i])) for i in range(dp.K - 1)] != proof.decomposition_proof_r.y_s[1:]:
+        raise AssertionError("the fold's batch commitments differ from the commit kernel's")
+    del wit_s, batch
+    log(f"[fold {name}] the proof's {dp.K - 1} batch commitments equal the commit kernel's")
     out = dict(m=ccs.m, n=scheme.n, kappa=scheme.kappa, setup_s=setup_s, first_prove_s=first_s,
                sponge_s=sponge["s"], prove_s=prove_s, verify_s=verify_s, peak_bytes=peak,
                launches=launches)
@@ -481,10 +504,11 @@ def plane_commit_shape(label, name, kappa, n, Nb, seed, wseed, device, flush, wi
     L = e * Nb * nl
     scheme = AjtaiScheme(ring, kappa, n, seed=seed, device=device)
     pre = scheme._fused_planes
-    fcm = rand_field(ring, (c, n, e, Nb), wseed, device)
+    fcm = pc.empty_batch(ring, n, Nb, device)  # rows 16-byte aligned, as the fold's batches are
+    fcm.copy_(rand_field(ring, (c, n, e, Nb), wseed, device))
     slices = [(k0, min(n, k0 + pc._K_SLICE)) for k0 in range(0, n, pc._K_SLICE)]
     got, launches = counted(f"commit_batch_fused [{label}]", lambda: scheme.commit_batch_fused(fcm),
-                            {"plane_dot": len(slices), "plane_epilogue": 1})
+                            {"plane_dot_sm90": len(slices), "plane_epilogue": 1})
     if (got != scheme.commit_batch_cm(fcm)).any():
         raise AssertionError(f"commit_batch_fused [{label}] differs from commit_batch_cm (the commit kernel)")
     rec = dict(ring=name, kappa=kappa, n=n, Nb=Nb, launches=launches)
@@ -505,16 +529,23 @@ def plane_commit_shape(label, name, kappa, n, Nb, seed, wseed, device, flush, wi
                                    2 * c * rows * n * 4 * L)
     rec["cm_bound"] = bound(ring, (kappa * n + n * Nb + kappa * Nb) * c * e, kappa * Nb * c * n * e**2)
 
-    # kernel A per slice, and kernel B, each against its plain version
+    # kernel A (the Hopper dot) per slice, and kernel B, each against its
+    # plain version; the mma.sync dot timed beside the Hopper dot
     w2d = fcm.reshape(c, n, L)
     P = torch.stack([pc.plane_dot(pre.lhs_i8[:, :, a:b], w2d[:, a:b]) for a, b in slices])
     for si, (a, b) in enumerate(slices):
-        max_abs_err(f"plane_dot [{label}] slice {si}", P[si], pc.plane_dot_plain(pre.lhs_i8[:, :, a:b], w2d[:, a:b]))
+        max_abs_err(f"plane_dot_sm90 [{label}] slice {si}", P[si],
+                    pc.plane_dot_plain(pre.lhs_i8[:, :, a:b], w2d[:, a:b]))
     ks = slices[0][1]
     lhs0, w0 = pre.lhs_i8[:, :, :ks], w2d[:, :ks]
+    max_abs_err(f"plane_dot (mma.sync) [{label}]", pc.plane_dot_mma(lhs0, w0), P[0])
+    out_a = c * mpad * 4 * L * 4
     kern_a = dict(max_abs_err=0, ms=time_ms(lambda: pc.plane_dot(lhs0, w0), 20, flush),
+                  mma_sync_ms=time_ms(lambda: pc.plane_dot_mma(lhs0, w0), 20, flush),
                   plain_ms=time_ms(lambda: pc.plane_dot_plain(lhs0, w0), 2, flush),
-                  **roofline(c * mpad * ks + c * ks * L * 4 + c * mpad * 4 * L * 4, 2 * c * mpad * ks * 4 * L))
+                  **roofline(c * mpad * ks + c * ks * L * 4 + out_a, 2 * c * mpad * ks * 4 * L))
+    # the least time the port's layout allows: the int64 lanes are 8 B a word
+    kern_a["lane_floor"] = roofline(c * mpad * ks + c * ks * L * 8 + out_a, 2 * c * mpad * ks * 4 * L)
     planes_i8 = pc._signed_planes(w0, "full").to(torch.int8)
     kern_a["library_ms"] = int_mm_ms([(lhs0[ci], planes_i8[ci]) for ci in range(c)], flush)
     del planes_i8
@@ -531,22 +562,29 @@ def plane_commit_shape(label, name, kappa, n, Nb, seed, wseed, device, flush, wi
                   **roofline(len(slices) * c * (rows + 1) * 4 * L * 4 + c * len(slices) * mpad * 4 + out_bytes,
                              items * (nl + 1) * nl + c * kappa * Nb * e * (e - 1) * 2 * nl * nl,
                              PEAK_MAD32_PER_S))
-    rec.update(plane_dot=kern_a, plane_epilogue=kern_b)
+    rec.update(plane_dot_sm90=kern_a, plane_epilogue=kern_b)
     log(f"[plane commit {label}] {name} kappa={kappa} n={n} Nb={Nb}: fused {rec['fused_ms']:.4f} ms "
         f"({rec['fused_commits_per_s']:.1f} commits/s, bound {rec['route_bound']['bound_ms']:.4f} ms "
         f"{rec['route_bound']['bound_by']}), commit kernel {rec['cm_ms']:.4f} ms "
         f"({rec['cm_commits_per_s']:.1f} commits/s, bound {rec['cm_bound']['bound_ms']:.4f} ms); "
-        f"A {kern_a['ms']:.4f} ms (bound {kern_a['bound_ms']:.4f} {kern_a['bound_by']}, plain "
+        f"A {kern_a['ms']:.4f} ms (mma.sync {kern_a['mma_sync_ms']:.4f}; bound "
+        f"{kern_a['bound_ms']:.4f} {kern_a['bound_by']}, lane floor {kern_a['lane_floor']['bound_ms']:.4f}, plain "
         f"{kern_a['plain_ms']:.2f}, _int_mm {kern_a['library_ms']}), B {kern_b['ms']:.4f} ms "
         f"(bound {kern_b['bound_ms']:.4f}, plain {kern_b['plain_ms']:.2f}); launches {launches}; "
         f"equal to the commit kernel{' and the plain route' if with_route_plain else ''}")
-    entries = []
-    for key, r in (("plane_dot", kern_a), ("plane_epilogue", kern_b)):
-        entries.append(dict(KERNEL_INFO[key], name=f"{KERNEL_INFO[key]['name']}[{label}]",
-                            launches=launches[key], max_abs_err=r["max_abs_err"], ms=r["ms"],
-                            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                            library_ms=r["library_ms"], shape=f"{name} kappa={kappa} n={n} Nb={Nb}"))
+    entries = [route_entry(key, label, rec, launches[key]) for key in ("plane_dot_sm90", "plane_epilogue")]
     return rec, entries
+
+
+def route_entry(key, label, rec, launches):
+    """A ``kernels`` JSON entry of kernel A (the Hopper dot) or B from a
+    phase 1b record, with ``launches`` from the counted run of its path."""
+    r = rec[key]
+    extra = dict(mma_sync_ms=r["mma_sync_ms"], lane_floor_ms=r["lane_floor"]["bound_ms"]) if "mma_sync_ms" in r else {}
+    return dict(KERNEL_INFO[key], name=f"{KERNEL_INFO[key]['name']}[{label}]", launches=launches,
+                max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                bound_by=r["bound_by"], library_ms=r["library_ms"],
+                shape=f"{rec['ring']} kappa={rec['kappa']} n={rec['n']} Nb={rec['Nb']}", **extra)
 
 
 def check_plane_commit(device):
@@ -566,10 +604,10 @@ def check_plane_commit(device):
         torch.cuda.empty_cache()
     for name, (preset, kappa, _) in PATHS.items():
         dp = getattr(params, preset)
-        rec, ent = plane_commit_shape(f"{name} fold", name, kappa, WIT_LEN * dp.L, dp.K - 1, 7, 3, device,
-                                      flush, False)
+        # its kernels JSON entries come with the fold's launches (kernel_entries)
+        rec, _ = plane_commit_shape(f"{name} fold", name, kappa, WIT_LEN * dp.L, dp.K - 1, 7, 3, device,
+                                    flush, False)
         record[f"{name} fold"] = rec
-        entries += ent
         torch.cuda.empty_cache()
     return record, entries
 
@@ -623,8 +661,11 @@ def check_probes(device):
         dot_ops = 2 * C * M * K * 4 * L
         lib = lambda p: int_mm_ms([(a[ci], p[ci]) for ci in range(C)], flush)  # noqa: E731
         tag = f"L={L}"
-        cases[f"P1 v1/v2 {tag}"] = probe_case(
-            f"P1 v1/v2 {tag}", "plane_dot", lambda: pp.plane_dot(a, w), lambda: pc.plane_dot_plain(a, w),
+        cases[f"P1 v1 {tag}"] = probe_case(
+            f"P1 v1 {tag}", "plane_dot", lambda: pp.plane_dot_mma(a, w), lambda: pc.plane_dot_plain(a, w),
+            flush, dot_bytes, dot_ops, library=lambda: lib(planes))
+        cases[f"P1 v2 {tag}"] = probe_case(
+            f"P1 v2 {tag}", "plane_dot_sm90", lambda: pp.plane_dot(a, w), lambda: pc.plane_dot_plain(a, w),
             flush, dot_bytes, dot_ops, library=lambda: lib(planes))
         cases[f"P1 planes_only {tag}"] = probe_case(
             f"P1 planes_only {tag}", "plane_dot", lambda: pp.plane_dot(a, w, "planes_only"),
@@ -633,7 +674,7 @@ def check_probes(device):
             f"P1 dot_only {tag}", "plane_dot", lambda: pp.plane_dot(a, w, "dot_only"),
             lambda: pc.plane_dot_plain(a, w, "dot_only"), flush, dot_bytes, dot_ops, library=lambda: lib(fake))
         cases[f"P2 batched {tag}"] = probe_case(
-            f"P2 batched {tag}", "plane_dot", lambda: pp.plane_dot(a, w), lambda: pc.plane_dot_plain(a, w),
+            f"P2 batched {tag}", "plane_dot_sm90", lambda: pp.plane_dot(a, w), lambda: pc.plane_dot_plain(a, w),
             flush, dot_bytes, dot_ops, library=lambda: lib(planes))
         cases[f"P2 dma {tag}"] = probe_case(
             f"P2 dma {tag}", "dma_checksum", lambda: pp.dma_checksum(a, w), lambda: pp.dma_checksum_plain(a, w),
@@ -699,6 +740,10 @@ KERNEL_INFO = {
         name="plane_dot_kernel", route="cuda", source="latticefold_torch/csrc/plane_dot_kernel.cu",
         replaces="latticefold_tpu/rings/pallas_commit.py:136",
     ),
+    "plane_dot_sm90": dict(
+        name="plane_dot_sm90_kernel", route="cuda", source="latticefold_torch/csrc/plane_dot_sm90_kernel.cu",
+        replaces="latticefold_tpu/rings/pallas_commit.py:136",
+    ),
     "plane_epilogue": dict(
         name="plane_epilogue_kernel", route="cuda", source="latticefold_torch/csrc/plane_epilogue_kernel.cu",
         replaces="latticefold_tpu/rings/pallas_commit.py:180",
@@ -711,13 +756,14 @@ KERNEL_INFO = {
 }
 # probe (the first two words of its label) -> its kernel, and the TPU kernel it replaces
 PROBE_KERNEL = {
-    "P1 v1/v2": "plane_dot", "P1 planes_only": "plane_dot", "P1 dot_only": "plane_dot",
-    "P2 batched": "plane_dot", "P2 dma": "dma_checksum", "P3 kmajor": "plane_dot", "P3 dma": "dma_checksum",
+    "P1 v1": "plane_dot", "P1 v2": "plane_dot_sm90", "P1 planes_only": "plane_dot", "P1 dot_only": "plane_dot",
+    "P2 batched": "plane_dot_sm90", "P2 dma": "dma_checksum", "P3 kmajor": "plane_dot", "P3 dma": "dma_checksum",
     "P4 i8exact": "int_gemm", "P4 dotspeed": "int_gemm", "P5 dot_u8": "int_gemm",
     "P5 dot_u8_via_bf16": "int_gemm", "P5 bitcast": "bitcast", "P5 merge": "merge",
 }
 PROBE_REPLACES = {
-    "P1 v1/v2": "benches/exp_r4_kvar.py:60,74",
+    "P1 v1": "benches/exp_r4_kvar.py:60",
+    "P1 v2": "benches/exp_r4_kvar.py:74",
     "P1 planes_only": "benches/exp_r4_kvar.py:88",
     "P1 dot_only": "benches/exp_r4_kvar.py:102",
     "P2 batched": "benches/exp_r4_kvar2.py:43",
@@ -733,20 +779,22 @@ PROBE_REPLACES = {
 }
 
 
-def kernel_entries(name, dp, kappa, kres, launches):
+def kernel_entries(name, dp, kappa, kres, launches, route_rec):
     """The ``kernels`` JSON entries of one ring: each kernel at the shape the
-    prove launches it at (crt at N = n, the commit at Nb = K - 1), with the
-    other shapes beside it."""
+    prove launches it at (crt at N = n; the Hopper dot, the epilogue and the
+    commit kernel, off the main path now, at Nb = K - 1), with the other
+    shapes beside it."""
     n = WIT_LEN * dp.L
-    entries = []
+    entries = [route_entry(key, f"{name} fold", route_rec, launches[key])
+               for key in ("plane_dot_sm90", "plane_epilogue")]
     for key, main in (("crt", f"crt N={n}"), ("commit", f"kappa={kappa} n={n} Nb={dp.K - 1}")):
         r = kres[(key, main)]
         info = dict(KERNEL_INFO[key])
         info["name"] = f"{info['name']}[{name}]"
         entries.append(dict(
-            info, ring=name, launches=launches[key], max_abs_err=r["max_abs_err"],
+            info, ring=name, launches=launches.get(key, 0), max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=None, shape=main,
+            library_ms=None, shape=main, on_main_path=key == "crt",
             other_shapes={s: v for (k, s), v in kres.items() if k == key and s != main},
         ))
     return entries
@@ -801,7 +849,7 @@ def main() -> int:
             raise AssertionError(f"small fold [{name}]: the card's proof differs from the CPU's")
         log(f"[fold {name}] small fixture: the card's proof equals the CPU's")
         record["rings"][name] = dict(kernels={f"{k}:{s}": v for (k, s), v in kres.items()}, fold=fold)
-        entries += kernel_entries(name, dp, kappa, kres, fold["launches"])
+        entries += kernel_entries(name, dp, kappa, kres, fold["launches"], record["plane_commit"][f"{name} fold"])
         del scheme
         torch.cuda.empty_cache()
 

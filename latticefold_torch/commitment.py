@@ -3,11 +3,13 @@
 The scheme is a public random kappa x n matrix over the NTT-form ring; a
 commitment is the ring matrix-vector product A f. The matrix is sampled on
 the host from the same seeded numpy stream as the JAX package's, so both
-packages hold the same matrix bit for bit. Every commit -- single or batched,
-at any width, and ``commit_batch_cm`` -- goes through
-``rings.mxu.ajtai_commit``: the commit kernel on the card.
-``commit_batch_fused`` computes the same limbs by the byte-plane route of
-``rings.plane_commit`` (int8 tensor-core planes); no fold path calls it.
+packages hold the same matrix bit for bit. The fold's batch commits (the
+decomposition's K - 1 digit witnesses) go through ``commit_batch_fused``:
+the byte-plane route of ``rings.plane_commit`` (int8 tensor-core planes,
+kernels A and B). ``commit_device``, ``commit_batch`` and
+``commit_batch_cm`` go through ``rings.mxu.ajtai_commit``, the commit
+kernel on the card, which computes the same limbs and is the route's
+cross-check.
 """
 
 from __future__ import annotations

@@ -35,6 +35,7 @@ SOURCES = {
     "crt": "crt_kernel.cu",
     "commit": "commit_kernel.cu",
     "plane_dot": "plane_dot_kernel.cu",
+    "plane_dot_sm90": "plane_dot_sm90_kernel.cu",
     "plane_epilogue": "plane_epilogue_kernel.cu",
     "int_gemm": "int_gemm_kernel.cu",
     "probe": "probe_kernels.cu",
@@ -47,6 +48,7 @@ _ARGTYPES = {
     "crt": ("crt", "lf_crt_apply", [_P] * 3 + [_I] * 3 + [_U64P, _P]),
     "commit": ("commit", "lf_ajtai_commit", [_P] * 5 + [_I] * 9 + [_U64P, _P]),
     "plane_dot": ("plane_dot", "lf_plane_dot", [_P, _LL, _LL, _P, _LL, _LL, _I, _P] + [_I] * 8 + [_P]),
+    "plane_dot_sm90": ("plane_dot_sm90", "lf_plane_dot_sm90", [_P, _LL, _LL, _P, _LL, _LL, _I, _P] + [_I] * 6 + [_P]),
     "plane_epilogue": ("plane_epilogue", "lf_plane_epilogue", [_P] * 4 + [_I] * 11 + [_U64P, _P]),
     "int_gemm": ("int_gemm", "lf_int_gemm", [_P, _LL, _P, _LL, _P, _LL] + [_I] * 6 + [_P]),
     "dma_checksum": ("probe", "lf_dma_checksum", [_P, _LL, _P, _LL, _P, _I, _I, _P]),

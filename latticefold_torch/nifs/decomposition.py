@@ -2,8 +2,10 @@
 
 Split one LCCCS of norm bound B into K instances of bound b. The witness
 digits are extracted on the device; the statement split is host-side (l+1
-elements). The K-1 digit witnesses y_1..y_{K-1} are committed as one batch
-through the commit kernel; the first commitment is derived homomorphically:
+elements). The K-1 digit witnesses y_1..y_{K-1} are committed as one
+component-major batch through the byte-plane route
+(``AjtaiScheme.commit_batch_fused``); the first commitment is derived
+homomorphically:
 y_0 = cm - b * sum_{i>=1} b^{i-1} y_i.
 """
 
@@ -21,6 +23,7 @@ from ..commitment import AjtaiScheme
 from ..params import DecompositionParams
 from ..poly import mle as mlemod
 from ..rings import ops as rops
+from ..rings import plane_commit
 from ..rings.construct import Ring
 from ..transcript import Transcript
 
@@ -103,6 +106,18 @@ def decompose_witness(
     ]
 
 
+def digit_batch(ring: Ring, wits: List[Witness]):
+    """The digit witnesses' f [n, ncomp, e, nl] as one component-major
+    batch [ncomp, n, e, len(wits), nl] in ``plane_commit.empty_batch``'s
+    layout, the one the byte-plane commit reads on the card: one copy, as a
+    stack on the batch dimension is."""
+    f0 = wits[0].f
+    batch = plane_commit.empty_batch(ring, f0.shape[0], len(wits), f0.device)
+    for i, w in enumerate(wits):
+        batch[:, :, :, i] = w.f.permute(1, 0, 2, 3)
+    return batch
+
+
 def _dot_rows(ring: Ring, wT, z):
     """<z, wT_j> per row: wT [t, N, ...], z [N, ...] -> [t, ncomp, e, nl]."""
     return rops.ring_sum(ring, rops.ring_mul(ring, wT, z[None]), 1)
@@ -130,12 +145,12 @@ def prove(
         ring, dp, list(cm_i.x_w) + [cm_i.h]
     )
 
-    # commitments: y_1..y_{K-1} as one batch through the commit kernel;
-    # y_0 derived homomorphically
+    # commitments: y_1..y_{K-1} as one component-major batch through the
+    # byte-plane route (kernels A and B); y_0 derived homomorphically
     commitments_k1 = []
     if dp.K > 1:
-        batch = torch.stack([w.f for w in wit_s[1:]], dim=1)  # [n, K-1, ...]
-        cms_host = rops.to_host(ring, scheme.commit_batch(batch))
+        batch = digit_batch(ring, wit_s[1:])
+        cms_host = rops.to_host(ring, scheme.commit_batch_fused(batch))
         del batch
         commitments_k1 = [
             Commitment(ring, list(cms_host[:, i])) for i in range(dp.K - 1)

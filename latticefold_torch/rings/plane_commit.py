@@ -8,11 +8,14 @@ padded to a multiple of 32 with one all-ones row at ``rows`` that gives the
 witness column sums, and per-slice row sums ``sM``. The contraction over n
 runs in slices of at most ``_K_SLICE`` terms:
 
-  1. ``plane_dot`` (kernel A, ``csrc/plane_dot_kernel.cu``; the port of
-     ``_fused_slice`` / ``_dot_kernel``): per slice and component,
-     P[m, byte L + word] = sum_k A_i8[m, k] * (int8)(byte of (W[k, word] ^
-     0x80808080)), the witness planes built in shared memory from the u32
-     words, never in device memory; int8 tensor-core MMA.
+  1. ``plane_dot`` (kernel A; the port of ``_fused_slice`` /
+     ``_dot_kernel``): per slice and component, P[m, byte L + word] =
+     sum_k A_i8[m, k] * (int8)(byte of (W[k, word] ^ 0x80808080)), the
+     witness planes built in registers from the u32 words, never in device
+     memory. The full dot runs on ``csrc/plane_dot_sm90_kernel.cu`` (wgmma
+     on TMA-loaded stages, every Ajtai row per block); the probe modes and
+     the K-major lhs on ``csrc/plane_dot_kernel.cu`` (mma.sync), which
+     ``plane_dot_mma`` also reaches in full mode.
   2. ``epilogue`` (kernel B, ``csrc/plane_epilogue_kernel.cu``; the port of
      ``_epilogue_fused`` and ``mxu._ext_fold``): the unsigned-plane
      corrections P + 128 colsum + 128 rowsum + 128^2 ks of every slice, the
@@ -40,6 +43,9 @@ _K_SLICE = 1 << 15  # 255^2 * 2^15 < 2^31: exact int32 sums per slice
 MODES = {"full": 0, "planes_only": 1, "dot_only": 2}
 _BLOCKS_PER_SM = 8  # blocks to aim for on each SM (K splits make up the rest)
 _MIN_SPLIT_K = 256  # the least K a split takes
+_SM90_WIDTHS = (64, 128, 192, 224)  # the Hopper dot's row-group widths N
+_SM90_MIN_SPLIT_K = 1024  # the least K a split of the Hopper dot takes
+_SM90_WORDS = 32  # the words a block of the Hopper dot owns (csrc: Cfg::WT)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -59,7 +65,9 @@ def precompute(ring: Ring, matrix) -> FusedPlanes:
     c, ke, n, da = planes.shape
     rows = ke * da
     mpad = _round_up(rows + 1, 32)  # always one spare row for the ones row
-    lhs = torch.zeros((c, mpad, n), dtype=torch.int8, device=planes.device)
+    # rows of n padded to 16 bytes in storage: the Hopper dot's tensor map
+    # needs 16-byte row strides
+    lhs = torch.zeros((c, mpad, _round_up(n, 16)), dtype=torch.int8, device=planes.device)[:, :, :n]
     lhs[:, :rows] = (planes.movedim(-1, -2).reshape(c, rows, n) ^ 0x80).view(torch.int8)
     lhs[:, rows] = 1
     sM = torch.stack([lhs[:, :, k0 : k0 + _K_SLICE].sum(-1, dtype=torch.int32)
@@ -106,6 +114,59 @@ def split_k(tiles: int, ks: int, sms: int) -> int:
     return max(1, min(-(-_BLOCKS_PER_SM * sms // tiles), ks // _MIN_SPLIT_K))
 
 
+def sm90_groups(mpad: int):
+    """The Hopper dot's row groups for ``mpad`` rows: (groups, N), the
+    fewest groups of at most 224 rows that cover Mpad, N the least
+    instantiated width that holds an equal share (Mpad 224: one group of
+    224; 416: two of 224; 576: three of 192). A block owns one group and
+    ``_SM90_WORDS`` words."""
+    groups = -(-mpad // _SM90_WIDTHS[-1])
+    per = -(-mpad // groups)
+    return groups, next(w for w in _SM90_WIDTHS if w >= per)
+
+
+def split_k_sm90(tiles: int, ks: int, sms: int) -> int:
+    """K splits of the Hopper dot: one block per SM (its stage ring takes
+    most of the shared memory), so as many splits as fit the card's SMs in
+    one wave, each at least _SM90_MIN_SPLIT_K deep."""
+    return max(1, min(sms // tiles, ks // _SM90_MIN_SPLIT_K))
+
+
+def _aligned16(t) -> bool:
+    """Pointer and the strides of dims 0 and 1 multiples of 16 bytes: what a
+    TMA tensor map takes."""
+    e = t.element_size()
+    return t.data_ptr() % 16 == 0 and (t.stride(0) * e) % 16 == 0 and (t.stride(1) * e) % 16 == 0
+
+
+def _plane_dot_sm90(lhs, w):
+    dev = w.device
+    if lhs.device != dev or lhs.dtype != torch.int8 or lhs.stride(-1) != 1:
+        raise ValueError("plane_dot: lhs must be an int8 tensor on the witness's device with unit last stride")
+    if w.dtype not in (torch.int32, torch.int64) or w.stride(-1) != 1:
+        raise ValueError("plane_dot: w must hold u32 words in int32 or int64 lanes, unit last stride")
+    c, ks, L = w.shape
+    mpad = lhs.shape[1]
+    if lhs.shape[0] != c or lhs.shape[2] != ks:
+        raise ValueError(f"plane_dot: lhs {tuple(lhs.shape)} does not fit w {tuple(w.shape)}")
+    groups, n = sm90_groups(mpad)
+    if not (_aligned16(lhs) and _aligned16(w)):
+        raise ValueError("plane_dot: the Hopper dot's tensor maps need 16-byte aligned pointers and row "
+                         f"strides: lhs strides {lhs.stride()}, w strides {w.stride()} of "
+                         f"{w.element_size()}-byte words (``empty_batch`` pads a witness batch's rows)")
+    tiles = c * groups * -(-L // _SM90_WORDS)
+    ksplit = split_k_sm90(tiles, ks, torch.cuda.get_device_properties(dev).multi_processor_count)
+    out = (torch.zeros if ksplit > 1 else torch.empty)((c, mpad, 4 * L), dtype=torch.int32, device=dev)
+    code = cuda.kernel("plane_dot_sm90")(
+        lhs.data_ptr(), lhs.stride(0), lhs.stride(1), w.data_ptr(), w.stride(0),
+        w.stride(1), w.element_size(), out.data_ptr(), c, mpad, ks, L, ksplit, n,
+        cuda.stream_handle(dev),
+    )
+    cuda.check(code, "plane_dot_sm90")
+    cuda.LAUNCHES["plane_dot_sm90"] += 1
+    return out
+
+
 def _plane_dot_kernel(lhs, w, mode: str, kmajor: bool):
     dev = w.device
     if lhs.device != dev or lhs.dtype != torch.int8 or lhs.stride(-1) != 1:
@@ -136,14 +197,27 @@ def plane_dot(lhs, w, mode: str = "full", kmajor: bool = False):
     """Kernel A. lhs [c, Mpad, Ks] int8 (``kmajor``: [c, Ks, Mpad]), w
     [c, Ks, L] u32 words (int32 or int64 lanes; strided views along c and
     Ks are taken as they are) -> P [c, Mpad, 4 L] int32, column = byte L +
-    word. Modes: ``full`` (the K2 / P1 v1 and v2 / P2 batched function),
-    ``planes_only`` (row 0 = the plane column sums, other rows 0) and
-    ``dot_only`` (the dot on fake planes, the low byte of each word)."""
+    word. Modes: ``full`` (the K2 / P1 v2 / P2 batched function; row-major
+    lhs on the Hopper dot, ``plane_dot_sm90_kernel.cu``), ``planes_only``
+    (row 0 = the plane column sums, other rows 0) and ``dot_only`` (the dot
+    on fake planes, the low byte of each word), both on the mma.sync
+    kernel, as is the K-major lhs."""
     if mode not in MODES:
         raise ValueError(f"plane_dot: no mode {mode!r} (modes: {', '.join(MODES)})")
     if w.device.type == "cpu":
         return plane_dot_plain(lhs, w, mode, kmajor)
+    if mode == "full" and not kmajor:
+        return _plane_dot_sm90(lhs, w)
     return _plane_dot_kernel(lhs, w, mode, kmajor)
+
+
+def plane_dot_mma(lhs, w):
+    """``plane_dot``'s full, row-major function on the mma.sync kernel
+    (``plane_dot_kernel.cu``): P1's ``kern_v1``, the in-call baseline of
+    the Hopper dot."""
+    if w.device.type == "cpu":
+        return plane_dot_plain(lhs, w)
+    return _plane_dot_kernel(lhs, w, "full", False)
 
 
 # ---------------------------------------------------------------------------
@@ -215,10 +289,22 @@ def epilogue(ring: Ring, P, sM, rows: int, n: int, Nb: int):
 # ---------------------------------------------------------------------------
 
 
+def empty_batch(ring: Ring, n: int, Nb: int, device) -> torch.Tensor:
+    """An uninitialized component-major witness batch [ncomp, n, e, Nb, nl]
+    (int64 lanes) whose rows of e Nb nl words start 16 bytes apart, as the
+    Hopper dot's tensor map needs: the rows are padded to an even number of
+    words in storage (BabyBear's fold batch has 63)."""
+    L = ring.e * Nb * ring.nl
+    store = torch.empty((ring.ncomp, n, _round_up(L, 2)), dtype=torch.int64, device=device)
+    return store[:, :, :L].view(ring.ncomp, n, ring.e, Nb, ring.nl)
+
+
 def ajtai_commit_fused(ring: Ring, pre: FusedPlanes, fcm):
     """The byte-plane batch commit, bit-identical to ``mxu.ajtai_commit_cm``.
 
-    fcm: [ncomp, n, e, Nb, nl] Montgomery component-major witness batch.
+    fcm: [ncomp, n, e, Nb, nl] Montgomery component-major witness batch;
+    on the card its rows of e Nb nl words must start 16 bytes apart (a
+    contiguous batch with an even word count, or ``empty_batch``'s).
     Returns [kappa, Nb, ncomp, e, nl]. One kernel A launch per slice of
     ``_K_SLICE`` terms, then one kernel B launch."""
     c, n, e, Nb, nl = fcm.shape
@@ -229,4 +315,5 @@ def ajtai_commit_fused(ring: Ring, pre: FusedPlanes, fcm):
     return epilogue(ring, P, pre.sM, pre.rows, n, Nb)
 
 
-__all__ = ["FusedPlanes", "precompute", "plane_dot", "epilogue", "ajtai_commit_fused"]
+__all__ = ["FusedPlanes", "precompute", "plane_dot", "plane_dot_mma", "epilogue", "empty_batch",
+           "ajtai_commit_fused"]

@@ -3,7 +3,8 @@ matrix-unit work (``benches/exp_r4_kvar*.py``, ``exp_r4_probe.py``,
 ``exp_pallas_probe.py``). Each probe function's kernels map to a function
 here:
 
-  P1 exp_r4_kvar.py:47 make_call     kern_v1, kern_v2   plane_dot(mode="full")
+  P1 exp_r4_kvar.py:47 make_call     kern_v1            plane_dot_mma (mma.sync)
+                                     kern_v2            plane_dot(mode="full")
                                      kern_planes_only   plane_dot(mode="planes_only")
                                      kern_dot_only      plane_dot(mode="dot_only")
   P2 exp_r4_kvar2.py:86              batched_kernel     plane_dot(mode="full")
@@ -17,7 +18,9 @@ here:
                                      k_dot_bf           bf16_gemm
                                      k_merge            merge_minor
 
-(``plane_dot`` is kernel A of ``rings/plane_commit.py``.) On CUDA tensors
+(``plane_dot`` is kernel A of ``rings/plane_commit.py``: its full mode on
+the Hopper dot, ``csrc/plane_dot_sm90_kernel.cu``, its other modes and
+``plane_dot_mma`` on the mma.sync kernel.) On CUDA tensors
 each function launches its kernel (``csrc/int_gemm_kernel.cu``,
 ``csrc/probe_kernels.cu``); on CPU tensors it runs the plain version beside
 it. The benches' loop-and-perturb timing harness is not ported: the card
@@ -31,9 +34,9 @@ import torch
 
 from .. import cuda
 from .. import modops as mo
-from .plane_commit import plane_dot, split_k
+from .plane_commit import plane_dot, plane_dot_mma, split_k
 
-__all__ = ["plane_dot", "dma_checksum", "int_gemm", "bf16_gemm", "bitcast_u8", "merge_minor"]
+__all__ = ["plane_dot", "plane_dot_mma", "dma_checksum", "int_gemm", "bf16_gemm", "bitcast_u8", "merge_minor"]
 
 _GEMM_TYPES = {torch.int8: 0, torch.uint8: 1}
 _BLOCKS_PER_SM = 4  # DMA checksum blocks per SM
