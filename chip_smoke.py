@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive latticefold_torch's main paths on one NVIDIA GPU and check them.
 
-  python3 chip_smoke.py   # every path, about 14 min of command time
+  python3 chip_smoke.py   # every path, about 10 min of command time
 
 The paths: one NIFS fold per ring through ``nifs.prove`` / ``nifs.verify``,
 on the identity R1CS of wit_len 4096, x_len 1, with a witness of ones and
@@ -34,27 +34,40 @@ Phases (any failure raises and the script exits non-zero):
      and commits/s of both routes; the Hopper dot's ms (twice) beside the
      mma.sync dot's from the same call, its bound (4 B a word), its lane
      floor (8 B a word, the int64 limb lanes it reads) and ``_int_mm``;
+   - a contiguous BabyBear batch with odd Nb (rows of 63 words, not 16
+     bytes apart) through ``commit_batch_fused``, which copies it into
+     aligned storage first: equal to ``commit_batch_cm``;
    - the TPU probes P1-P5 (``rings/plane_probes.py``) at their TPU shapes,
      each equal to its plain version, timed beside its bound and, where one
      PyTorch call computes the same function, that call (``torch._int_mm``
      for the int8 dots it accepts, 8 calls for the 8-component dots); P1 v1
      runs the mma.sync dot, P1 v2 and P2 batched the Hopper dot.
 2. For each ring, hold each kernel against its plain PyTorch version on the
-   card at the path's shapes: the CRT kernel as icrt at N = wit_len (the
-   input witness), crt at N = n = wit_len * L (each digit witness) and icrt
-   at N = n (the folded witness); the commit kernel at (kappa, n) with
-   Nb = K - 1 and Nb = 1. Exact equality (all values are integers mod q).
-   The plain commit runs in chunks of n added with ``mo.add`` (the same
-   function; Stark's full product would need tens of GB). Print each
-   kernel's median ms, the plain version's ms and the bound: the larger of
-   the bytes the function moves (4 nl bytes per F_q value, each input read
-   once, each output written once) over the card's memory rate, and the
-   32-bit multiply-adds it needs (two per 32x32 -> 64 limb product, nl^2
-   limb products per F_q product) over the card's 32-bit rate outside the
-   tensor cores.
+   card at the path's shapes: the tensor-core CRT kernel
+   (``crt_tc_kernel.cu``) as icrt at N = wit_len (the input witness), crt
+   at N = n = wit_len * L (each digit witness) and icrt at N = n (the
+   folded witness), against both plain versions (``ops.mat_apply`` and
+   ``ops.crt_conv_plain``, on the conv matrix the kernel reads) and the
+   SIMT CRT kernel (``crt_kernel.cu``, off the main path), timed beside it
+   in the same call, with ``torch._int_mm`` of signed operands at the conv
+   dot's M x K x columns as a yardstick of the dot half (not the same
+   function); the commit kernel at (kappa, n) with Nb = K - 1 and Nb = 1.
+   Exact equality (all values are integers mod q). The plain commit runs
+   in chunks of n added with ``mo.add`` (the same function; Stark's full
+   product would need tens of GB). Print each kernel's median ms, the
+   plain version's ms and the bound: the larger of the bytes the function
+   moves (4 nl bytes per F_q value, each input read once, each output
+   written once) over the card's memory rate, and its operations over the
+   card's rate for their type: for the tensor-core CRT the byte products
+   the function needs (d^2 (4 nl)^2 per element, two operations each) at
+   the int8 tensor-core rate, with the lane floor (8 B a limb, the int64
+   lanes) beside it; for the SIMT CRT and the commit kernel the 32-bit
+   multiply-adds (two per 32x32 -> 64 limb product, nl^2 limb products per
+   F_q product) at the card's 32-bit rate outside the tensor cores.
 3. For each ring's fold: one prove with the launch counts reset just before
-   it (crt 2K + 1, the Hopper dot 2 and the epilogue 2 launches per prove,
-   and no other kernel: the commit kernel 0; checked), timing the host
+   it (the tensor-core CRT 2K + 1, the Hopper dot 2 and the epilogue 2
+   launches per prove, and no other kernel: the SIMT CRT and the commit
+   kernel 0; checked), timing the host
    transcript sponge; the port's verifier must accept its proof and the
    folded witness must open the folded commitment; then the timed proves,
    which must give the same proof; one decomposition batch committed by
@@ -66,8 +79,9 @@ Phases (any failure raises and the script exits non-zero):
    (device busy s, device kernels, idle share; about 5 min in all, most of
    it spent stopping the profiler and reading ~3 million events).
 4. Print the ``kernels`` JSON line (one entry per kernel and ring, the
-   commit kernel marked off the main path, and per kernel, mode and shape
-   of phase 1b), then the card line, then the last line
+   SIMT CRT and the commit kernel marked off the main path, and per
+   kernel, mode and shape of phase 1b), then the card line, then the last
+   line
    ``{"ok": true, "device": {...}}``.
 
 Without a card, or without the ``latticefold_torch`` package beside it,
@@ -187,34 +201,65 @@ def commit_plain(ring, matrix, f):
     return out
 
 
+def check_crt(name, ring, n, device, flush):
+    """Phase 2's CRT for one ring: the tensor-core kernel against both plain
+    versions and the SIMT kernel, each shape, all timed in this call.
+    Returns {(kernel, shape): numbers}."""
+    import torch
+
+    from latticefold_torch.rings import ops
+
+    results = {}
+    d, nl = ring.d, ring.nl
+    K, cols = 4 * d * nl, 8 * nl * d
+    # icrt of the input witness, crt of each digit witness, icrt of the folded witness
+    for which, N, seed in (("icrt", WIT_LEN, 1), ("crt", n, 2), ("icrt", n, 5)):
+        x = rand_field(ring, (N, d), seed, device)
+        mat = ops._device_mat(ring, which, device)
+        got = ops._transform_tc(ring, which, x)
+        err = max_abs_err(f"crt_tc [{name}] ({which}, N={N}) against mat_apply", got,
+                          ops.mat_apply(ring.fq, mat, x))
+        err += max_abs_err(f"crt_tc [{name}] ({which}, N={N}) against crt_conv_plain", got,
+                           ops.crt_conv_plain(ring, which, x))
+        max_abs_err(f"crt_kernel (SIMT) [{name}] ({which}, N={N})", ops._transform_simt(ring, which, x), got)
+        shape = f"{which} N={N}"
+        simt_ms = time_ms(lambda: ops._transform_simt(ring, which, x), 20, flush)
+        tc = dict(max_abs_err=err, ms=time_ms(lambda: ops._transform_tc(ring, which, x), 20, flush),
+                  simt_ms=simt_ms, plain_ms=time_ms(lambda: ops.mat_apply(ring.fq, mat, x), 3, flush),
+                  conv_plain_ms=time_ms(lambda: ops.crt_conv_plain(ring, which, x), 3, flush),
+                  library_ms=None,
+                  # bytes at 4 B a limb; the byte products the function needs
+                  # (C's zeros not counted), two operations each
+                  **roofline(2 * N * d * nl * 4, 2 * N * d * d * (4 * nl) ** 2))
+        tc["lane_floor"] = roofline(2 * N * d * nl * 8, 2 * N * d * d * (4 * nl) ** 2)
+        # a yardstick of the dot half, not the same function: torch._int_mm
+        # of signed operands at the dot's M x K x columns
+        a8 = torch.randint(-128, 128, (N, K), dtype=torch.int8, device=device)
+        b8 = torch.randint(-128, 128, (K, cols), dtype=torch.int8, device=device)
+        tc["int_mm_ms"] = int_mm_ms([(a8, b8)], flush)
+        del a8, b8
+        results[("crt_tc", shape)] = tc
+        b = bound(ring, 2 * N * d, N * d * d)
+        results[("crt", shape)] = dict(ms=simt_ms, plain_ms=tc["plain_ms"], max_abs_err=0, **b)
+        log(f"[kernels] crt_tc[{name}] {shape}: {tc['ms']:.4f} ms (SIMT crt_kernel {simt_ms:.4f} ms)  "
+            f"bound {tc['bound_ms']:.5f} ms ({tc['bound_by']}), lane floor {tc['lane_floor']['bound_ms']:.5f}  "
+            f"plain {tc['plain_ms']:.2f} ms, conv plain {tc['conv_plain_ms']:.2f} ms  _int_mm of the dot "
+            f"{tc['int_mm_ms']:.4f} ms  exact against both plain versions")
+        del x, got
+    return results
+
+
 def check_kernels(name, dp, scheme, device):
     """Phase 2 for one ring: each kernel against its plain version at the
     path's shapes. Returns {(kernel, shape): numbers}."""
     import torch
 
-    from latticefold_torch.rings import mxu, ops
+    from latticefold_torch.rings import mxu
 
     ring = scheme.ring
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)  # > 50 MB L2
-    results = {}
     n = scheme.n
-    for which, N, seed in (("icrt", WIT_LEN, 1), ("crt", n, 2), ("icrt", n, 5)):
-        x = rand_field(ring, (N, ring.d), seed, device)
-        mat = ops._device_mat(ring, which, device)
-        got = ops._transform_kernel(ring, which, x)
-        want = ops.mat_apply(ring.fq, mat, x)
-        torch.cuda.synchronize()
-        err = int((got != want).sum().item())
-        if err:
-            raise AssertionError(f"crt kernel [{name}] ({which}, N={N}): {err} limbs differ from the plain version")
-        ms = time_ms(lambda: ops._transform_kernel(ring, which, x), 20, flush)
-        plain_ms = time_ms(lambda: ops.mat_apply(ring.fq, mat, x), 3, flush)
-        b = bound(ring, 2 * N * ring.d, N * ring.d * ring.d)
-        results[("crt", f"{which} N={N}")] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=0, **b)
-        log(f"[kernels] crt_kernel[{name}] {which} N={N}: {ms:.4f} ms  plain {plain_ms:.2f} ms  "
-            f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}; bytes {b['bytes_ms']:.4f}, "
-            f"{b['mad32']:.3e} mad32 {b['ops_ms']:.4f})  exact")
-        del x, got, want
+    results = check_crt(name, ring, n, device, flush)
 
     kappa = scheme.kappa
     for Nb, seed in ((dp.K - 1, 3), (1, 4)):
@@ -333,9 +378,10 @@ def run_fold(name, dp, scheme, reps, device, profile=False):
         return nifs.prove(acc, wit, cm_i, wit, Transcript(ring), ccs, scheme, dp)
 
     # the main path, counted: every kernel of the path must launch in it,
-    # as often as the code says (2K crt + 1 icrt; per decomposition batch
-    # commit one Hopper dot per 2^15-term slice and one epilogue), and no
-    # other (the commit kernel is the route's cross-check only)
+    # as often as the code says (2K crt + 1 icrt on the tensor-core CRT; per
+    # decomposition batch commit one Hopper dot per 2^15-term slice and one
+    # epilogue), and no other (the SIMT CRT and the commit kernel are
+    # baselines and cross-checks only)
     torch.cuda.reset_peak_memory_stats(device)
     cuda.reset_launches()
     sponge = {"s": 0.0}
@@ -347,7 +393,7 @@ def run_fold(name, dp, scheme, reps, device, profile=False):
     launches = {k: v for k, v in cuda.LAUNCHES.items() if v}  # and no other kernel
     log(f"[fold {name}] first prove {first_s:.3f} s (host sponge {sponge['s']:.3f} s); launches {launches}")
     slices = -(-scheme.n // plane_commit._K_SLICE)
-    expected = {"crt": 2 * dp.K + 1, "plane_dot_sm90": 2 * slices, "plane_epilogue": 2}
+    expected = {"crt_tc": 2 * dp.K + 1, "plane_dot_sm90": 2 * slices, "plane_epilogue": 2}
     if launches != expected:
         raise AssertionError(f"launches per prove {launches}, expected {expected}")
 
@@ -609,7 +655,37 @@ def check_plane_commit(device):
                                     flush, False)
         record[f"{name} fold"] = rec
         torch.cuda.empty_cache()
+    record["babybear contiguous Nb=7"] = check_odd_batch(device)
     return record, entries
+
+
+def check_odd_batch(device):
+    """A contiguous BabyBear batch [8, n, 9, 7, 1] at the fold's kappa and n:
+    rows of 63 words, not 16 bytes apart, which ``commit_batch_fused`` copies
+    into aligned storage before the route; the limbs must equal
+    ``commit_batch_cm``'s."""
+    import torch
+
+    from latticefold_torch import params
+    from latticefold_torch.commitment import AjtaiScheme
+    from latticefold_torch.rings import plane_commit as pc
+    from latticefold_torch.rings.construct import get_ring
+
+    ring, kappa, Nb = get_ring("babybear"), PATHS["babybear"][1], 7
+    n = WIT_LEN * params.DP_BABYBEAR.L
+    scheme = AjtaiScheme(ring, kappa, n, seed=7, device=device)
+    fcm = rand_field(ring, (ring.ncomp, n, ring.e, Nb), 11, device)
+    if pc.aligned_batch(ring, fcm) is fcm:
+        raise AssertionError("the contiguous odd-Nb batch should not be 16-byte aligned")
+    label = f"commit_batch_fused [babybear contiguous Nb={Nb}]"
+    got, launches = counted(label, lambda: scheme.commit_batch_fused(fcm),
+                            {"plane_dot_sm90": -(-n // pc._K_SLICE), "plane_epilogue": 1})
+    if (got != scheme.commit_batch_cm(fcm)).any():
+        raise AssertionError(f"{label} differs from commit_batch_cm")
+    log(f"[plane commit] {label} kappa={kappa} n={n}: launches {launches}; equal to commit_batch_cm")
+    del scheme, fcm, got
+    torch.cuda.empty_cache()
+    return dict(ring="babybear", kappa=kappa, n=n, Nb=Nb, launches=launches, equal_to_commit_batch_cm=True)
 
 
 def probe_case(label, kernel, fn, plain, flush, n_bytes, ops, peak_ops=PEAK_INT8_OPS_PER_S, library=None):
@@ -728,6 +804,10 @@ def check_probes(device):
 
 
 KERNEL_INFO = {
+    "crt_tc": dict(
+        name="crt_tc_kernel", route="cuda", source="latticefold_torch/csrc/crt_tc_kernel.cu",
+        replaces="latticefold_tpu/rings/pallas_crt.py:105",
+    ),
     "crt": dict(
         name="crt_kernel", route="cuda", source="latticefold_torch/csrc/crt_kernel.cu",
         replaces="latticefold_tpu/rings/pallas_crt.py:105",
@@ -781,21 +861,27 @@ PROBE_REPLACES = {
 
 def kernel_entries(name, dp, kappa, kres, launches, route_rec):
     """The ``kernels`` JSON entries of one ring: each kernel at the shape the
-    prove launches it at (crt at N = n; the Hopper dot, the epilogue and the
-    commit kernel, off the main path now, at Nb = K - 1), with the other
-    shapes beside it."""
+    prove launches it at (the CRTs at crt N = n; the Hopper dot, the
+    epilogue and the commit kernel at Nb = K - 1), with the other shapes
+    beside it. The SIMT CRT and the commit kernel are off the main path."""
     n = WIT_LEN * dp.L
     entries = [route_entry(key, f"{name} fold", route_rec, launches[key])
                for key in ("plane_dot_sm90", "plane_epilogue")]
-    for key, main in (("crt", f"crt N={n}"), ("commit", f"kappa={kappa} n={n} Nb={dp.K - 1}")):
+    for key, main in (("crt_tc", f"crt N={n}"), ("crt", f"crt N={n}"),
+                      ("commit", f"kappa={kappa} n={n} Nb={dp.K - 1}")):
         r = kres[(key, main)]
         info = dict(KERNEL_INFO[key])
         info["name"] = f"{info['name']}[{name}]"
+        extra = {}
+        if key == "crt_tc":
+            extra = dict(simt_ms=r["simt_ms"], lane_floor_ms=r["lane_floor"]["bound_ms"],
+                         conv_plain_ms=r["conv_plain_ms"], int_mm_dot_ms=r["int_mm_ms"])
         entries.append(dict(
             info, ring=name, launches=launches.get(key, 0), max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=None, shape=main, on_main_path=key == "crt",
-            other_shapes={s: v for (k, s), v in kres.items() if k == key and s != main},
+            library_ms=None, shape=main, on_main_path=key == "crt_tc", **extra,
+            other_shapes={s: {k: v for k, v in rec.items() if k != "lane_floor"}
+                          for (k, s), rec in kres.items() if k == key and s != main},
         ))
     return entries
 

@@ -9,8 +9,8 @@
 Digit layout: f_coeff[i*L + j] = j-th radix-B digit of w_ccs[i].
 For B >= 2^16, B-digits are formed by recombining K balanced base-b digits
 (b = B_SMALL < 2^16), which keeps |digit| < B and recomposition exact.
-Every CRT/ICRT here goes through ``rings.ops.crt``/``icrt``: the CRT kernel
-on the card.
+Every CRT/ICRT here goes through ``rings.ops.crt``/``icrt``: the tensor-core
+CRT kernel on the card.
 """
 
 from __future__ import annotations

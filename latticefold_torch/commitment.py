@@ -111,7 +111,10 @@ class AjtaiScheme:
 
     def commit_batch_fused(self, fcm) -> torch.Tensor:
         """``commit_batch_cm`` on the byte-plane route (kernels A and B of
-        ``rings/plane_commit.py``): the same limbs."""
+        ``rings/plane_commit.py``): the same limbs. Any layout: a batch
+        whose rows do not start 16 bytes apart is copied into aligned
+        storage first (``plane_commit.aligned_batch``)."""
+        fcm = plane_commit.aligned_batch(self.ring, fcm)
         return plane_commit.ajtai_commit_fused(self.ring, self._fused_planes, fcm)
 
     def commit(self, f) -> Commitment:

@@ -2,6 +2,7 @@
 // (plane_epilogue_kernel.cu): the base-256 carry of byte-position sums into
 // 32-bit limbs and the wide Montgomery reduction by R2 = 2^(32 (NL + 1)),
 // as the JAX package's rings/mxu.py `_carry_pack` and `_redc_wide` do them.
+// The tensor-core CRT (crt_tc.cuh) runs the same reduction.
 //
 // Like the field headers it compiles as plain C++ too (field_common.cuh),
 // so the CPU tests hold it against Python integers with g++.
@@ -48,6 +49,7 @@ struct WideRedc {
   // mu q and ripples the carry into the guard; t is overwritten.
   LF_DEV void reduce(u32* t, u32* out) const {
     constexpr int W = 2 * NL + 2;
+#pragma unroll
     for (int r = 0; r <= NL; ++r) {
       const u32 mu = t[r] * ninv;
       u64 c = 0;

@@ -33,6 +33,7 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 # library name -> source file
 SOURCES = {
     "crt": "crt_kernel.cu",
+    "crt_tc": "crt_tc_kernel.cu",
     "commit": "commit_kernel.cu",
     "plane_dot": "plane_dot_kernel.cu",
     "plane_dot_sm90": "plane_dot_sm90_kernel.cu",
@@ -46,6 +47,7 @@ _U64P = ctypes.POINTER(ctypes.c_uint64)
 # kernel name -> (library, C function, argument types)
 _ARGTYPES = {
     "crt": ("crt", "lf_crt_apply", [_P] * 3 + [_I] * 3 + [_U64P, _P]),
+    "crt_tc": ("crt_tc", "lf_crt_tc", [_P] * 3 + [_I] * 3 + [_U64P, _P]),
     "commit": ("commit", "lf_ajtai_commit", [_P] * 5 + [_I] * 9 + [_U64P, _P]),
     "plane_dot": ("plane_dot", "lf_plane_dot", [_P, _LL, _LL, _P, _LL, _LL, _I, _P] + [_I] * 8 + [_P]),
     "plane_dot_sm90": ("plane_dot_sm90", "lf_plane_dot_sm90", [_P, _LL, _LL, _P, _LL, _LL, _I, _P] + [_I] * 6 + [_P]),

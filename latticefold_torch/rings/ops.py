@@ -6,10 +6,13 @@ is ``[..., ncomp, e, nl]`` (Montgomery limbs, held in int64 -- see
 K-coordinate order (component-major, then extension coordinate) matches
 ``Ring.flatten`` on the host side and the transcript's absorb order.
 
-``crt``/``icrt`` on a CUDA tensor launch the hand-written kernel
-``csrc/crt_kernel.cu`` for every batch size; on a CPU tensor they run the
-plain version ``mat_apply`` beside it. Nothing falls back from one to the
-other.
+``crt``/``icrt`` on a CUDA tensor launch the hand-written tensor-core
+kernel ``csrc/crt_tc_kernel.cu`` for every batch size; on a CPU tensor they
+run the plain version ``mat_apply``. Nothing falls back from one to the
+other. ``crt_conv_plain`` is the tensor-core kernel's own plain version (the
+same conv-folded byte matrix it reads), and ``csrc/crt_kernel.cu`` (32-bit
+multiply-adds on CUDA cores) the earlier kernel, kept as its in-call
+baseline: no path of the package launches it.
 """
 
 from __future__ import annotations
@@ -49,8 +52,9 @@ def mat_apply(m: mo.Modulus, M, x):
     return mo.sum_mod(m, prod, -2)
 
 
-def _transform_kernel(ring: Ring, which: str, x):
-    """Launch csrc/crt_kernel.cu on x [N, d, nl] (CUDA) -> [N, d, nl]."""
+def _transform_simt(ring: Ring, which: str, x):
+    """Launch csrc/crt_kernel.cu (the SIMT baseline) on x [N, d, nl] (CUDA)
+    -> [N, d, nl]."""
     dev = x.device
     mat = _device_mat(ring, which, dev)
     cuda.require_tensor(x, "crt input", dev)
@@ -65,12 +69,102 @@ def _transform_kernel(ring: Ring, which: str, x):
     return out
 
 
+# The tensor-core CRT (csrc/crt_tc_kernel.cu; the TPU kernel's route,
+# latticefold_tpu/rings/pallas_crt.py): the matrix, prescaled by 2^32 R mod
+# q, split into bytes and folded over byte positions into one u8 matrix C,
+# so that for x's bytes xb the s32 sums Y[(o, s)] = sum_k xb[k] C[k, (o, s)]
+# are output o's byte-position sums; a base-256 carry and a wide Montgomery
+# reduction by 2^(32 (nl + 1)) give the Montgomery limbs of sum_i M[o, i] x[i]
+# R^-1. Every sum has at most 4 d nl <= 512 terms below 2^16: exact in s32.
+
+TC_COLS = 128  # columns of one chunk of C: the kernel's wgmma N
+TC_KB = 128  # k per 128-byte row of a chunk's k block
+
+
+@functools.lru_cache(maxsize=None)
+def conv_matrix(ring: Ring, which: str) -> np.ndarray:
+    """C as uint8 [K, d, 8 nl], K = 4 d nl. Row k = 4 (i nl + l) + b is byte
+    b of limb l of input i (so four consecutive k are one u32 limb);
+    column (o, s) is byte position s of output o, s < 8 nl (s = 8 nl - 1 is
+    all zero). For a fixed row only one byte of each entry M[o, i] 2^32 R
+    mod q lands on a position, so every entry is one byte."""
+    d, nl = ring.d, ring.nl
+    rows = {"crt": ring.crt_rows, "icrt": ring.icrt_rows}[which]
+    scale = (1 << (32 * nl + 32)) % ring.q
+    adj = ring.fq.encode(np.array([[v * scale % ring.q for v in row] for row in rows], dtype=object))
+    adj_bytes = adj.astype("<u4").view(np.uint8).reshape(d, d, 4 * nl)  # [o, i, byte]
+    C = np.zeros((d, 4 * nl, d, 8 * nl), dtype=np.uint8)  # [i, 4 l + b, o, s]
+    for j in range(4 * nl):
+        C[:, j, :, j : j + 4 * nl] = adj_bytes.transpose(1, 0, 2)
+    return C.reshape(4 * d * nl, d, 8 * nl)
+
+
+def conv_tiles(ring: Ring, which: str) -> np.ndarray:
+    """``conv_matrix`` in the layout the kernel copies into shared memory:
+    uint8 [chunks, k blocks, TC_COLS, TC_KB]. A chunk holds the columns of
+    TC_COLS / (8 nl) outputs (outputs past d are zero), a k block 128 k (k
+    past K zero), each column's 128 bytes one row, K-major as 8-bit wgmma
+    reads B, in the 128-byte swizzle: 16-byte group g of row n lies at
+    g ^ (n % 8) (csrc/crt_tc.cuh ``conv_offset``)."""
+    C = conv_matrix(ring, which)
+    K, d, sp = C.shape
+    cpc = TC_COLS // sp
+    nch, nkb = -(-d // cpc), -(-K // TC_KB)
+    padded = np.zeros((nkb * TC_KB, nch * cpc, sp), dtype=np.uint8)
+    padded[:K, :d] = C
+    tiles = padded.reshape(nkb, TC_KB, nch, TC_COLS).transpose(2, 0, 3, 1)  # [ch, kb, n, k]
+    n = np.arange(TC_COLS)[:, None]
+    k = np.arange(TC_KB)[None, :]
+    out = np.empty_like(tiles)
+    out[:, :, n, k ^ ((n & 7) << 4)] = tiles
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _device_conv(ring: Ring, which: str, device: torch.device):
+    """(``conv_matrix``, ``conv_tiles``) as uint8 tensors on ``device``."""
+    return (torch.from_numpy(conv_matrix(ring, which)).to(device),
+            torch.from_numpy(np.ascontiguousarray(conv_tiles(ring, which))).to(device))
+
+
+def crt_conv_plain(ring: Ring, which: str, x):
+    """Plain version of the tensor-core kernel, on the matrix it reads:
+    x [..., d, nl] Montgomery -> [..., d, nl]. The byte dot runs in float64
+    (exact: every sum is below 2^25), then ``mxu._carry_pack`` and
+    ``mxu._redc_wide``."""
+    from . import mxu  # mxu imports this module
+
+    d, nl = ring.d, ring.nl
+    C = _device_conv(ring, which, x.device)[0]
+    xb = mxu.to_planes(x.reshape(-1, d, nl)).reshape(-1, 4 * d * nl)
+    y = (xb.double() @ C.reshape(4 * d * nl, d * 8 * nl).double()).long().reshape(-1, d, 8 * nl)
+    t = mxu._carry_pack([y[..., s] for s in range(8 * nl - 1)], 2 * nl + 1)
+    return mxu._redc_wide(ring.fq, t).reshape(x.shape)
+
+
+def _transform_tc(ring: Ring, which: str, x):
+    """Launch csrc/crt_tc_kernel.cu on x [N, d, nl] (CUDA) -> [N, d, nl]. A
+    (nl, d) without an instance there makes the launcher return an error
+    code, which ``cuda.check`` raises."""
+    dev = x.device
+    tiles = _device_conv(ring, which, dev)[1]
+    cuda.require_tensor(x, "crt input", dev)
+    out = torch.empty_like(x)
+    code = cuda.kernel("crt_tc")(
+        x.data_ptr(), tiles.data_ptr(), out.data_ptr(), x.shape[0], ring.d, ring.nl,
+        cuda.field_constants(ring.q, ring.nl), cuda.stream_handle(dev),
+    )
+    cuda.check(code, "crt_tc")
+    cuda.LAUNCHES["crt_tc"] += 1
+    return out
+
+
 def _transform(ring: Ring, which: str, x):
     """[..., d, nl] -> [..., d, nl] through the CRT/ICRT matrix."""
     if x.device.type == "cpu":
         return mat_apply(ring.fq, _device_mat(ring, which, x.device), x)
     flat = x.reshape(-1, ring.d, ring.nl).contiguous()
-    return _transform_kernel(ring, which, flat).reshape(x.shape)
+    return _transform_tc(ring, which, flat).reshape(x.shape)
 
 
 def crt(ring: Ring, coeffs):

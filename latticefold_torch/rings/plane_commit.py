@@ -299,6 +299,24 @@ def empty_batch(ring: Ring, n: int, Nb: int, device) -> torch.Tensor:
     return store[:, :, :L].view(ring.ncomp, n, ring.e, Nb, ring.nl)
 
 
+def aligned_batch(ring: Ring, fcm) -> torch.Tensor:
+    """``fcm`` itself when its rows of e Nb nl words start 16 bytes apart (as
+    ``empty_batch``'s do, and as the Hopper dot's tensor map needs), else a
+    copy of it in ``empty_batch`` storage: a layout copy, the same values
+    (a contiguous batch with an odd word count, such as BabyBear's
+    [8, n, 9, Nb, 1] with odd Nb, takes this copy)."""
+    c, n, e, Nb, nl = fcm.shape
+    try:
+        rows = fcm.view(c, n, e * Nb * nl)
+    except RuntimeError:  # the row's words are not one strided run
+        rows = None
+    if rows is not None and rows.stride(-1) == 1 and _aligned16(rows):
+        return fcm
+    out = empty_batch(ring, n, Nb, fcm.device)
+    out.copy_(fcm)
+    return out
+
+
 def ajtai_commit_fused(ring: Ring, pre: FusedPlanes, fcm):
     """The byte-plane batch commit, bit-identical to ``mxu.ajtai_commit_cm``.
 
@@ -316,4 +334,4 @@ def ajtai_commit_fused(ring: Ring, pre: FusedPlanes, fcm):
 
 
 __all__ = ["FusedPlanes", "precompute", "plane_dot", "plane_dot_mma", "epilogue", "empty_batch",
-           "ajtai_commit_fused"]
+           "aligned_batch", "ajtai_commit_fused"]

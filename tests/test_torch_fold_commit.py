@@ -14,6 +14,7 @@ integer mod q."""
 
 import numpy as np
 import pytest
+import torch
 
 import latticefold_torch.nifs as tnifs
 import latticefold_torch.nifs.linearization as tlinearization
@@ -104,6 +105,41 @@ def test_fold_commits_only_through_the_byte_plane_route(monkeypatch):
     folded_v = tnifs.verify(acc, cm_i, proof, TTranscript(ring), ccs, dp)
     assert folded_v.cm == folded.cm
     assert w0.commit(scheme) == folded.cm
+
+
+def _babybear_batch(n, nb, seed):
+    """A contiguous BabyBear batch [8, n, 9, nb, 1] of values below q: rows
+    of 9 nb int64 words, 16-byte aligned only for even nb."""
+    ring = tget_ring("babybear")
+    rng = np.random.default_rng(seed)
+    limbs = rng.integers(0, ring.q, size=(ring.ncomp, n, ring.e, nb, ring.nl), dtype=np.int64)
+    return ring, torch.from_numpy(limbs)
+
+
+def test_aligned_batch_copies_only_misaligned_rows():
+    """``plane_commit.aligned_batch``: an odd-Nb contiguous batch comes back
+    as a copy with equal values and 16-byte row strides; an aligned batch
+    (even Nb, or the copy itself) comes back as the same tensor."""
+    from latticefold_torch.rings import plane_commit as tpc
+
+    ring, fcm = _babybear_batch(5, 7, 41)
+    c, n, e, nb, nl = fcm.shape
+    got = tpc.aligned_batch(ring, fcm)
+    assert got.data_ptr() != fcm.data_ptr() and torch.equal(got, fcm)
+    rows = got.view(c, n, e * nb * nl)
+    assert rows.stride(-1) == 1 and rows.data_ptr() % 16 == 0
+    assert rows.stride(0) * 8 % 16 == 0 and rows.stride(1) * 8 % 16 == 0
+    assert tpc.aligned_batch(ring, got).data_ptr() == got.data_ptr()
+    _, even = _babybear_batch(5, 2, 42)
+    assert tpc.aligned_batch(ring, even).data_ptr() == even.data_ptr()
+
+
+def test_odd_nb_babybear_batch_fused_matches_commit_batch_cm():
+    """A contiguous BabyBear batch with Nb = 7 (63 words a row) commits
+    through ``commit_batch_fused`` to the limbs ``commit_batch_cm`` gives."""
+    ring, fcm = _babybear_batch(48, 7, 43)
+    scheme = TScheme(ring, 2, 48, seed=5, device="cpu")
+    assert torch.equal(scheme.commit_batch_fused(fcm), scheme.commit_batch_cm(fcm))
 
 
 @pytest.mark.parametrize("mpad,groups", [

@@ -1,11 +1,12 @@
 """latticefold_torch.rings.ops against latticefold_tpu.rings.ops: ext_mul /
 ring_mul / scalar_mul / const_mul, add / sub / sum, the host <-> device
-conversions, and the plain CRT/ICRT against the JAX package's
-streamed VPU path and its fused Pallas kernel (interpret mode on the CPU),
-at the shapes of tests/test_rings.py, and for every ring (Stark included) the
-plain CRT/ICRT against the JAX package's host oracle. The CRT kernel itself
-runs only on the card: chip_smoke.py holds it against the plain version
-there.
+conversions, and both plain CRT/ICRT versions (``mat_apply``, the CPU
+path, and ``crt_conv_plain``, the tensor-core kernel's own on its conv
+matrix) against the JAX package's streamed VPU path and its fused Pallas
+kernel (interpret mode on the CPU), at the shapes of tests/test_rings.py,
+and for every ring (Stark included) against the JAX package's host oracle.
+The CRT kernels themselves run only on the card: chip_smoke.py holds them
+against both plain versions there.
 
 Tolerance: exact equality of canonical limbs -- every result is an integer
 mod q."""
@@ -41,6 +42,17 @@ def rand_mont_coeffs(ring, seed, N):
     return ring.fq.encode(mont)
 
 
+def conv_crt(tring, coeffs):
+    """``crt`` through ``crt_conv_plain``: [N, d, nl] -> [N, ncomp, e, nl]."""
+    out = trops.crt_conv_plain(tring, "crt", coeffs)
+    return out.reshape(out.shape[:-2] + (tring.ncomp, tring.e, tring.nl))
+
+
+def conv_icrt(tring, x):
+    """``icrt`` through ``crt_conv_plain``: [N, ncomp, e, nl] -> [N, d, nl]."""
+    return trops.crt_conv_plain(tring, "icrt", x.reshape(x.shape[:-3] + (tring.d, tring.nl)))
+
+
 @pytest.mark.parametrize("name", RINGS)
 def test_ring_mul_matches_jax(name):
     ring, tring = get_ring(name), tget_ring(name)
@@ -69,13 +81,18 @@ def test_ring_mul_matches_jax(name):
     assert list(trops.to_host(tring, t(a))) == elts[:N]
 
 
-@pytest.mark.parametrize("name", RINGS[:2] + RINGS[3:])
+@pytest.mark.parametrize("name", RINGS)
 def test_crt_plain_matches_vpu(name):
+    """Both plain versions: ``mat_apply`` (the CPU path of crt / icrt) and
+    ``crt_conv_plain`` (the tensor-core kernel's, on its conv matrix)."""
     ring, tring = get_ring(name), tget_ring(name)
     coeffs = rand_mont_coeffs(ring, 11, 37)
     want = rops.crt_vpu(ring, coeffs)
     assert same(trops.crt(tring, t(coeffs)), want)
-    assert same(trops.icrt(tring, t(np.asarray(want))), rops.icrt_vpu(ring, want))
+    assert same(conv_crt(tring, t(coeffs)), want)
+    want_i = rops.icrt_vpu(ring, want)
+    assert same(trops.icrt(tring, t(np.asarray(want))), want_i)
+    assert same(conv_icrt(tring, t(np.asarray(want))), want_i)
 
 
 @pytest.mark.parametrize("name", RINGS[:2] + RINGS[3:])
@@ -88,7 +105,10 @@ def test_crt_plain_matches_pallas_interpret(name):
     coeffs = rand_mont_coeffs(ring, 13, 1093)
     want = pallas_crt.crt(ring, coeffs)
     assert same(trops.crt(tring, t(coeffs)), want)
-    assert same(trops.icrt(tring, t(np.asarray(want))), pallas_crt.icrt(ring, want))
+    assert same(conv_crt(tring, t(coeffs)), want)
+    want_i = pallas_crt.icrt(ring, want)
+    assert same(trops.icrt(tring, t(np.asarray(want))), want_i)
+    assert same(conv_icrt(tring, t(np.asarray(want))), want_i)
 
 
 @pytest.mark.parametrize("name", RINGS)
@@ -103,7 +123,10 @@ def test_crt_plain_matches_host_oracle(name):
     x = t(ring.fq.encode(np.vectorize(lambda v: int(v) * R % ring.q, otypes=[object])(coeffs)))
     ntt = trops.crt(tring, x)  # [N, ncomp, e, nl]
     assert list(trops.to_host(tring, ntt)) == [ring.crt_host([int(v) for v in c]) for c in coeffs]
-    back = tring.fq.decode(trops.icrt(tring, ntt).numpy())  # Montgomery ints [N, d]
+    assert conv_crt(tring, x).equal(ntt)
+    back = trops.icrt(tring, ntt)
+    assert conv_icrt(tring, ntt).equal(back)
+    back = tring.fq.decode(back.numpy())  # Montgomery ints [N, d]
     rinv = pow(R, -1, ring.q)
     for i in range(N):
         want = ring.icrt_host(ring.crt_host([int(v) for v in coeffs[i]]))
