@@ -23,17 +23,23 @@ Phases (any failure raises and the script exits non-zero):
    print the build seconds.
 1b. The byte-plane batch commit (``AjtaiScheme.commit_batch_fused``, the
    fold's batch commit: kernel A's Hopper dot ``plane_dot_sm90_kernel.cu``
-   once per 2^15-term slice, and kernel B, the epilogue, once), driven with
-   the launch counts reset just before each call and checked just after:
+   once per 2^15-term slice, and kernel B, the diagonal epilogue
+   ``plane_epilogue_diag_kernel.cu``, once), driven with the launch counts
+   reset just before each call and checked just after:
    - at bench.py's headline shape (Goldilocks, kappa 9, n 2^15, seed 1,
-     seeded witness batches Nb = 16 and 64) and at each ring's fold commit
-     shape (the fold phase's kappa, n = wit_len L, Nb = K - 1): equal to
-     ``commit_batch_cm`` (the commit kernel) and, at bench.py's shape, to
-     the plain byte-plane route (``mxu.ajtai_commit_cm``); the Hopper dot,
-     the mma.sync dot and kernel B each equal to their plain versions; ms
-     and commits/s of both routes; the Hopper dot's ms (twice) beside the
-     mma.sync dot's from the same call, its bound (4 B a word), its lane
-     floor (8 B a word, the int64 limb lanes it reads) and ``_int_mm``;
+     seeded witness batches Nb = 16 and 64), at two slices (the same ring
+     and kappa, n 2^16, Nb 16: two kernel A launches, one kernel B launch
+     with nsl 2) and at each ring's fold commit shape (the fold phase's
+     kappa, n = wit_len L, Nb = K - 1): equal to ``commit_batch_cm`` (the
+     commit kernel) and, at bench.py's shape, to the plain byte-plane
+     route (``mxu.ajtai_commit_cm``); the Hopper dot, the mma.sync dot and
+     kernel B each equal to their plain versions, kernel B also to the
+     item-per-thread kernel ``plane_epilogue_kernel.cu`` (off the path);
+     ms and commits/s of both routes; the Hopper dot's ms (twice) beside
+     the mma.sync dot's from the same call, its bound (4 B a word), its
+     lane floor (8 B a word, the int64 limb lanes it reads) and
+     ``_int_mm``; kernel B's ms timed in turns with the item-per-thread
+     kernel's;
    - a contiguous BabyBear batch with odd Nb (rows of 63 words, not 16
      bytes apart) through ``commit_batch_fused``, which copies it into
      aligned storage first: equal to ``commit_batch_cm``;
@@ -65,9 +71,10 @@ Phases (any failure raises and the script exits non-zero):
    multiply-adds (two per 32x32 -> 64 limb product, nl^2 limb products per
    F_q product) at the card's 32-bit rate outside the tensor cores.
 3. For each ring's fold: one prove with the launch counts reset just before
-   it (the tensor-core CRT 2K + 1, the Hopper dot 2 and the epilogue 2
-   launches per prove, and no other kernel: the SIMT CRT and the commit
-   kernel 0; checked), timing the host
+   it (the tensor-core CRT 2K + 1, the Hopper dot 2 and the diagonal
+   epilogue 2 launches per prove, and no other kernel: the SIMT CRT, the
+   item-per-thread epilogue and the commit kernel 0; checked), timing the
+   host
    transcript sponge; the port's verifier must accept its proof and the
    folded witness must open the folded commitment; then the timed proves,
    which must give the same proof; one decomposition batch committed by
@@ -79,9 +86,9 @@ Phases (any failure raises and the script exits non-zero):
    (device busy s, device kernels, idle share; about 5 min in all, most of
    it spent stopping the profiler and reading ~3 million events).
 4. Print the ``kernels`` JSON line (one entry per kernel and ring, the
-   SIMT CRT and the commit kernel marked off the main path, and per
-   kernel, mode and shape of phase 1b), then the card line, then the last
-   line
+   SIMT CRT, the item-per-thread epilogue and the commit kernel marked off
+   the main path, and per kernel, mode and shape of phase 1b), then the
+   card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Without a card, or without the ``latticefold_torch`` package beside it,
@@ -122,6 +129,8 @@ PATHS = {
 PROFILED = "stark"  # the ring whose fold runs one more prove under the profiler
 # bench.py's headline commit (bench.py:114-151): ring, kappa, n, Ajtai seed, batches
 BENCH_COMMIT = ("goldilocks", 9, 1 << 15, 1, (16, 64))
+# the two-slice batch commit: bench.py's ring, kappa and Nb 16 at n 2^16
+TWO_SLICE_COMMIT = ("goldilocks", 9, 1 << 16, 16)
 PROBE_C, PROBE_MPAD, PROBE_K = 8, 224, 1 << 15  # the probes' commit-dot shape
 
 
@@ -170,6 +179,27 @@ def time_ms(fn, reps, flush=None):
         end.synchronize()
         ts.append(start.elapsed_time(end))
     return statistics.median(ts)
+
+
+def time_in_turns(fns: dict, reps, flush):
+    """Median device times of several functions of the same work, each run
+    ``reps`` times in turns (the order reversed every other round: a, b, b,
+    a, ...), the L2 flushed before each run. Returns {key: ms}."""
+    import torch
+
+    ts = {k: [] for k in fns}
+    keys = list(fns)
+    for r in range(reps):
+        for k in keys if r % 2 == 0 else keys[::-1]:
+            flush.zero_()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fns[k]()
+            end.record()
+            end.synchronize()
+            ts[k].append(start.elapsed_time(end))
+    return {k: statistics.median(v) for k, v in ts.items()}
 
 
 def bound(ring, n_values: int, n_products: int) -> dict:
@@ -380,8 +410,8 @@ def run_fold(name, dp, scheme, reps, device, profile=False):
     # the main path, counted: every kernel of the path must launch in it,
     # as often as the code says (2K crt + 1 icrt on the tensor-core CRT; per
     # decomposition batch commit one Hopper dot per 2^15-term slice and one
-    # epilogue), and no other (the SIMT CRT and the commit kernel are
-    # baselines and cross-checks only)
+    # diagonal epilogue), and no other (the SIMT CRT, the item-per-thread
+    # epilogue and the commit kernel are baselines and cross-checks only)
     torch.cuda.reset_peak_memory_stats(device)
     cuda.reset_launches()
     sponge = {"s": 0.0}
@@ -393,7 +423,7 @@ def run_fold(name, dp, scheme, reps, device, profile=False):
     launches = {k: v for k, v in cuda.LAUNCHES.items() if v}  # and no other kernel
     log(f"[fold {name}] first prove {first_s:.3f} s (host sponge {sponge['s']:.3f} s); launches {launches}")
     slices = -(-scheme.n // plane_commit._K_SLICE)
-    expected = {"crt_tc": 2 * dp.K + 1, "plane_dot_sm90": 2 * slices, "plane_epilogue": 2}
+    expected = {"crt_tc": 2 * dp.K + 1, "plane_dot_sm90": 2 * slices, "plane_epilogue_diag": 2}
     if launches != expected:
         raise AssertionError(f"launches per prove {launches}, expected {expected}")
 
@@ -554,7 +584,7 @@ def plane_commit_shape(label, name, kappa, n, Nb, seed, wseed, device, flush, wi
     fcm.copy_(rand_field(ring, (c, n, e, Nb), wseed, device))
     slices = [(k0, min(n, k0 + pc._K_SLICE)) for k0 in range(0, n, pc._K_SLICE)]
     got, launches = counted(f"commit_batch_fused [{label}]", lambda: scheme.commit_batch_fused(fcm),
-                            {"plane_dot_sm90": len(slices), "plane_epilogue": 1})
+                            {"plane_dot_sm90": len(slices), "plane_epilogue_diag": 1})
     if (got != scheme.commit_batch_cm(fcm)).any():
         raise AssertionError(f"commit_batch_fused [{label}] differs from commit_batch_cm (the commit kernel)")
     rec = dict(ring=name, kappa=kappa, n=n, Nb=Nb, launches=launches)
@@ -597,10 +627,14 @@ def plane_commit_shape(label, name, kappa, n, Nb, seed, wseed, device, flush, wi
     del planes_i8
     B = pc.epilogue(ring, P, pre.sM, rows, n, Nb)
     if (B != got).any():
-        raise AssertionError(f"plane_epilogue [{label}] differs from commit_batch_fused's result")
-    max_abs_err(f"plane_epilogue [{label}]", B, pc.epilogue_plain(ring, P, pre.sM, rows, n, Nb))
+        raise AssertionError(f"plane_epilogue_diag [{label}] differs from commit_batch_fused's result")
+    max_abs_err(f"plane_epilogue_diag [{label}]", B, pc.epilogue_plain(ring, P, pre.sM, rows, n, Nb))
+    max_abs_err(f"plane_epilogue (items) [{label}]", pc.epilogue_items(ring, P, pre.sM, rows, n, Nb), B)
+    # the diagonal kernel and the item-per-thread kernel in turns
+    turns = time_in_turns({"diag": lambda: pc.epilogue(ring, P, pre.sM, rows, n, Nb),
+                           "items": lambda: pc.epilogue_items(ring, P, pre.sM, rows, n, Nb)}, 20, flush)
     items = c * kappa * Nb * e * e
-    kern_b = dict(max_abs_err=0, ms=time_ms(lambda: pc.epilogue(ring, P, pre.sM, rows, n, Nb), 20, flush),
+    kern_b = dict(max_abs_err=0, ms=turns["diag"], items_ms=turns["items"],
                   plain_ms=time_ms(lambda: pc.epilogue_plain(ring, P, pre.sM, rows, n, Nb), 2, flush),
                   library_ms=None,
                   # bytes: the rows it reads of P, sM, the output; operations: the
@@ -608,29 +642,41 @@ def plane_commit_shape(label, name, kappa, n, Nb, seed, wseed, device, flush, wi
                   **roofline(len(slices) * c * (rows + 1) * 4 * L * 4 + c * len(slices) * mpad * 4 + out_bytes,
                              items * (nl + 1) * nl + c * kappa * Nb * e * (e - 1) * 2 * nl * nl,
                              PEAK_MAD32_PER_S))
-    rec.update(plane_dot_sm90=kern_a, plane_epilogue=kern_b)
+    kern_items = dict(kern_b, ms=turns["items"])
+    del kern_items["items_ms"]
+    rec.update(plane_dot_sm90=kern_a, plane_epilogue_diag=kern_b, plane_epilogue=kern_items)
     log(f"[plane commit {label}] {name} kappa={kappa} n={n} Nb={Nb}: fused {rec['fused_ms']:.4f} ms "
         f"({rec['fused_commits_per_s']:.1f} commits/s, bound {rec['route_bound']['bound_ms']:.4f} ms "
         f"{rec['route_bound']['bound_by']}), commit kernel {rec['cm_ms']:.4f} ms "
         f"({rec['cm_commits_per_s']:.1f} commits/s, bound {rec['cm_bound']['bound_ms']:.4f} ms); "
         f"A {kern_a['ms']:.4f} ms (mma.sync {kern_a['mma_sync_ms']:.4f}; bound "
         f"{kern_a['bound_ms']:.4f} {kern_a['bound_by']}, lane floor {kern_a['lane_floor']['bound_ms']:.4f}, plain "
-        f"{kern_a['plain_ms']:.2f}, _int_mm {kern_a['library_ms']}), B {kern_b['ms']:.4f} ms "
-        f"(bound {kern_b['bound_ms']:.4f}, plain {kern_b['plain_ms']:.2f}); launches {launches}; "
+        f"{kern_a['plain_ms']:.2f}, _int_mm {kern_a['library_ms']}), B {kern_b['ms']:.4f} ms (items "
+        f"{kern_b['items_ms']:.4f}; bound {kern_b['bound_ms']:.4f}, plain {kern_b['plain_ms']:.2f}); "
+        f"launches {launches}; "
         f"equal to the commit kernel{' and the plain route' if with_route_plain else ''}")
-    entries = [route_entry(key, label, rec, launches[key]) for key in ("plane_dot_sm90", "plane_epilogue")]
-    return rec, entries
+    return rec, route_entries(label, rec, launches)
 
 
-def route_entry(key, label, rec, launches):
-    """A ``kernels`` JSON entry of kernel A (the Hopper dot) or B from a
-    phase 1b record, with ``launches`` from the counted run of its path."""
-    r = rec[key]
-    extra = dict(mma_sync_ms=r["mma_sync_ms"], lane_floor_ms=r["lane_floor"]["bound_ms"]) if "mma_sync_ms" in r else {}
-    return dict(KERNEL_INFO[key], name=f"{KERNEL_INFO[key]['name']}[{label}]", launches=launches,
-                max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                bound_by=r["bound_by"], library_ms=r["library_ms"],
-                shape=f"{rec['ring']} kappa={rec['kappa']} n={rec['n']} Nb={rec['Nb']}", **extra)
+ROUTE_KERNELS = ("plane_dot_sm90", "plane_epilogue_diag", "plane_epilogue")  # the last off the path
+
+
+def route_entries(label, rec, launches):
+    """The ``kernels`` JSON entries of kernels A (the Hopper dot) and B (the
+    diagonal kernel, and the item-per-thread kernel off the main path) from
+    a phase 1b record, with ``launches`` from the counted run of its path."""
+    entries = []
+    for key in ROUTE_KERNELS:
+        r = rec[key]
+        extra = {k: v for k, v in r.items() if k in ("mma_sync_ms", "items_ms")}
+        if "lane_floor" in r:
+            extra["lane_floor_ms"] = r["lane_floor"]["bound_ms"]
+        entries.append(dict(
+            KERNEL_INFO[key], name=f"{KERNEL_INFO[key]['name']}[{label}]", launches=launches.get(key, 0),
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"], on_main_path=key != "plane_epilogue",
+            shape=f"{rec['ring']} kappa={rec['kappa']} n={rec['n']} Nb={rec['Nb']}", **extra))
+    return entries
 
 
 def check_plane_commit(device):
@@ -648,6 +694,13 @@ def check_plane_commit(device):
         record[f"bench b{Nb}"] = rec
         entries += ent
         torch.cuda.empty_cache()
+    # two slices: bench.py's kappa and Nb 16 at n 2^16 (two kernel A
+    # launches, one kernel B launch with nsl 2)
+    name, kappa, n, Nb = TWO_SLICE_COMMIT
+    rec, ent = plane_commit_shape("two-slice b16", name, kappa, n, Nb, seed, 200, device, flush, False)
+    record["two-slice b16"] = rec
+    entries += ent
+    torch.cuda.empty_cache()
     for name, (preset, kappa, _) in PATHS.items():
         dp = getattr(params, preset)
         # its kernels JSON entries come with the fold's launches (kernel_entries)
@@ -657,6 +710,154 @@ def check_plane_commit(device):
         torch.cuda.empty_cache()
     record["babybear contiguous Nb=7"] = check_odd_batch(device)
     return record, entries
+
+
+def epilogue_inputs(device):
+    """Kernel B's inputs at each phase 1b commit shape, one shape at a time:
+    yields (label, ring, (ring, P, sM, rows, n, Nb)), P from the Hopper dot
+    on a seeded batch."""
+    import torch
+
+    from latticefold_torch import params
+    from latticefold_torch.commitment import AjtaiScheme
+    from latticefold_torch.rings import plane_commit as pc
+    from latticefold_torch.rings.construct import get_ring
+
+    name, kappa, n, _, batches = BENCH_COMMIT
+    shapes = [(f"bench b{Nb}", name, kappa, n, Nb) for Nb in batches]
+    shapes.append(("two-slice b16",) + TWO_SLICE_COMMIT)
+    shapes += [(f"{name} fold", name, kappa, WIT_LEN * getattr(params, preset).L, getattr(params, preset).K - 1)
+               for name, (preset, kappa, _) in PATHS.items()]
+    for label, name, kappa, n, Nb in shapes:
+        ring = get_ring(name)
+        scheme = AjtaiScheme(ring, kappa, n, seed=7, device=device)
+        pre = scheme._fused_planes
+        fcm = pc.empty_batch(ring, n, Nb, device)
+        fcm.copy_(rand_field(ring, (ring.ncomp, n, ring.e, Nb), 3, device))
+        w2d = fcm.reshape(ring.ncomp, n, -1)
+        P = torch.stack([pc.plane_dot(pre.lhs_i8[:, :, k0 : k0 + pc._K_SLICE], w2d[:, k0 : k0 + pc._K_SLICE])
+                         for k0 in range(0, n, pc._K_SLICE)])
+        del scheme, fcm, w2d
+        yield label, ring, (ring, P, pre.sM, pre.rows, n, Nb)
+        del pre, P
+        torch.cuda.empty_cache()
+
+
+def sweep_epilogue_groups(device, groups=(1, 2, 3, 4, 8)):
+    """Kernel B's diagonal kernel with 1, 2, 3, 4 and 8 b groups a block
+    (the choice ``plane_commit.diag_groups`` makes) at each phase 1b commit
+    shape, each equal to the item-per-thread kernel and timed in turns with
+    it. Not part of ``main``: ``python3 -c "import chip_smoke as cs; ..."``
+    runs it (.claude/skills/verify/SKILL.md). Returns {shape: {key: ms}}."""
+    import torch
+
+    from latticefold_torch.rings import plane_commit as pc
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    out = {}
+    for label, ring, args in epilogue_inputs(device):
+        want = pc.epilogue_items(*args)
+        fns = {"items": lambda: pc.epilogue_items(*args)}
+        for g in groups:
+            if (g - 1) * 32 // (4 * ring.nl) >= args[-1]:  # a whole group past Nb in every block
+                continue
+            fns[f"nbb={g}"] = lambda g=g: pc._epilogue_kernel("plane_epilogue_diag", *args, g)
+            max_abs_err(f"plane_epilogue_diag [{label}] nbb={g}", fns[f"nbb={g}"](), want)
+        out[label] = time_in_turns(fns, 20, flush)
+        log(f"[sweep B {label}] " + ", ".join(f"{k} {v:.5f} ms" for k, v in out[label].items()))
+    return out
+
+
+# kernel B's phases taken out, one at a time, for ablate_epilogue: (file of
+# latticefold_torch/csrc, text, replacement)
+EPILOGUE_ABLATIONS = {
+    "no loads": [
+        ("plane_epilogue_diag.cuh",
+         "      copy16(tile + (rowl * 4 + plane) * pitch + j * seg + 4 * q, Pc + grow * N + run(plane, j) + 4 * q);",
+         "      if (rowl == E * DA) copy16(tile + (rowl * 4 + plane) * pitch + j * seg + 4 * q, Pc + grow * N + run(plane, j) + 4 * q);"),
+        ("plane_epilogue_diag.cuh",
+         "w.v[m] = LF_LD_STREAM(prow + m * N + qg[m & 3] + (diag_jb(DA, s, m) >> 2));",
+         "w.v[m] = m + qg[m & 3];"),
+        ("plane_epilogue_diag.cuh",
+         "w.x[m] = Pc[pr.rows * N + qg[m & 3] + (diag_jb(DA, s, m) >> 2)] + sMr[m];",
+         "w.x[m] = m;"),
+    ],
+    "no grouping": [
+        ("plane_epilogue_diag_kernel.cu",
+         "      blk.group(si, task, tid, blk.DIRECT ? blk.load(si, task, tid) : Words{});",
+         "      if (task < 0) blk.group(si, task, tid, Words{});"),
+    ],
+    "no finish": [
+        ("plane_epilogue_diag_kernel.cu",
+         "  __syncthreads();\n  blk.finish(tid, nth, wr);",
+         "  __syncthreads();\n  if (pr.nsl > 0) return;\n  blk.finish(tid, nth, wr);"),
+    ],
+}
+
+
+def ablate_epilogue(device):
+    """Kernel B's diagonal kernel beside copies of it built without one
+    phase each (EPILOGUE_ABLATIONS: no loads of P, no grouping, no finish
+    and fold) and the item-per-thread kernel, timed in turns at each phase
+    1b commit shape. The copies are built with the same nvcc command into
+    latticefold_torch/_build/ablate. Not part of ``main``; returns {shape:
+    {key: ms}}."""
+    import ctypes
+    import shutil
+
+    import torch
+
+    from latticefold_torch import cuda
+    from latticefold_torch.rings import plane_commit as pc
+
+    cuda.build()
+    root = os.path.join(cuda.BUILD_DIR, "ablate")
+    shutil.rmtree(root, ignore_errors=True)
+    procs = {}
+    for key, edits in EPILOGUE_ABLATIONS.items():
+        src = os.path.join(root, key.replace(" ", "_"))
+        shutil.copytree(cuda.CSRC, src)
+        for fname, old, new in edits:
+            path = os.path.join(src, fname)
+            with open(path) as fh:
+                text = fh.read()
+            if text.count(old) != 1:
+                raise AssertionError(f"ablation {key!r}: {old!r} not found once in {fname}")
+            with open(path, "w") as fh:
+                fh.write(text.replace(old, new))
+        lib = os.path.join(src, "lib.so")
+        procs[key] = (lib, subprocess.Popen(
+            [cuda._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+             "-Xcompiler", "-fPIC", "-o", lib, os.path.join(src, cuda.SOURCES["plane_epilogue_diag"])],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    fns = {}
+    for key, (lib, proc) in procs.items():
+        log_text, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"ablation {key!r} did not build:\n{log_text}")
+        _, fn_name, argtypes = cuda._ARGTYPES["plane_epilogue_diag"]
+        fn = getattr(ctypes.CDLL(lib), fn_name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        fns[key] = fn
+    full = cuda.kernel("plane_epilogue_diag")
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+
+    def with_fn(fn, args):
+        cuda._fns["plane_epilogue_diag"] = fn
+        try:
+            return pc.epilogue(*args)
+        finally:
+            cuda._fns["plane_epilogue_diag"] = full
+
+    out = {}
+    for label, _, args in epilogue_inputs(device):
+        calls = {"full": lambda: pc.epilogue(*args), "items": lambda: pc.epilogue_items(*args)}
+        calls.update({key: (lambda fn=fn: with_fn(fn, args)) for key, fn in fns.items()})
+        out[label] = time_in_turns(calls, 20, flush)
+        log(f"[ablate B {label}] " + ", ".join(f"{k} {v:.5f} ms" for k, v in out[label].items()))
+    with open(os.path.join(OUT_DIR, "chip_smoke_ablate.json"), "w") as fh:
+        json.dump(out, fh, indent=1)
+    return out
 
 
 def check_odd_batch(device):
@@ -679,7 +880,7 @@ def check_odd_batch(device):
         raise AssertionError("the contiguous odd-Nb batch should not be 16-byte aligned")
     label = f"commit_batch_fused [babybear contiguous Nb={Nb}]"
     got, launches = counted(label, lambda: scheme.commit_batch_fused(fcm),
-                            {"plane_dot_sm90": -(-n // pc._K_SLICE), "plane_epilogue": 1})
+                            {"plane_dot_sm90": -(-n // pc._K_SLICE), "plane_epilogue_diag": 1})
     if (got != scheme.commit_batch_cm(fcm)).any():
         raise AssertionError(f"{label} differs from commit_batch_cm")
     log(f"[plane commit] {label} kappa={kappa} n={n}: launches {launches}; equal to commit_batch_cm")
@@ -824,6 +1025,11 @@ KERNEL_INFO = {
         name="plane_dot_sm90_kernel", route="cuda", source="latticefold_torch/csrc/plane_dot_sm90_kernel.cu",
         replaces="latticefold_tpu/rings/pallas_commit.py:136",
     ),
+    "plane_epilogue_diag": dict(
+        name="plane_epilogue_diag_kernel", route="cuda",
+        source="latticefold_torch/csrc/plane_epilogue_diag_kernel.cu",
+        replaces="latticefold_tpu/rings/pallas_commit.py:180",
+    ),
     "plane_epilogue": dict(
         name="plane_epilogue_kernel", route="cuda", source="latticefold_torch/csrc/plane_epilogue_kernel.cu",
         replaces="latticefold_tpu/rings/pallas_commit.py:180",
@@ -865,8 +1071,7 @@ def kernel_entries(name, dp, kappa, kres, launches, route_rec):
     epilogue and the commit kernel at Nb = K - 1), with the other shapes
     beside it. The SIMT CRT and the commit kernel are off the main path."""
     n = WIT_LEN * dp.L
-    entries = [route_entry(key, f"{name} fold", route_rec, launches[key])
-               for key in ("plane_dot_sm90", "plane_epilogue")]
+    entries = route_entries(f"{name} fold", route_rec, launches)
     for key, main in (("crt_tc", f"crt N={n}"), ("crt", f"crt N={n}"),
                       ("commit", f"kappa={kappa} n={n} Nb={dp.K - 1}")):
         r = kres[(key, main)]

@@ -28,6 +28,29 @@ LF_DEV void carry_pack(const u64* u, int nu, u32* t) {
   }
 }
 
+// The same T from any u64 position sums, a limb at a time: limb L takes
+// the low words of u[4L .. 4L+3] and the high words of u[4L-4 .. 4L-1], each
+// at shifts 0, 8, 16, 24 (each part below 2^58), and the carry of limb L - 1,
+// so the carry chain is 2NL+1 steps, not 8NL+4.
+template <int NL>
+LF_DEV void carry_limbs64(const u64* u, int nu, u32* t) {
+  constexpr int LIMBS = 2 * NL + 1;
+  u64 carry = 0;
+#pragma unroll
+  for (int L = 0; L < LIMBS; ++L) {
+    u64 w = carry;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int s = 4 * L + b;
+      if (s < nu) w += (u[s] & 0xFFFFFFFFull) << (8 * b);
+      if (L > 0 && s - 4 < nu) w += (u[s - 4] >> 32) << (8 * b);
+    }
+    t[L] = (u32)w;
+    carry = w >> 32;
+  }
+  t[LIMBS] = 0;
+}
+
 template <int NL>
 struct WideRedc {
   u32 q[NL];

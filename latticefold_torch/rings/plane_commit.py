@@ -16,12 +16,16 @@ runs in slices of at most ``_K_SLICE`` terms:
      on TMA-loaded stages, every Ajtai row per block); the probe modes and
      the K-major lhs on ``csrc/plane_dot_kernel.cu`` (mma.sync), which
      ``plane_dot_mma`` also reaches in full mode.
-  2. ``epilogue`` (kernel B, ``csrc/plane_epilogue_kernel.cu``; the port of
-     ``_epilogue_fused`` and ``mxu._ext_fold``): the unsigned-plane
+  2. ``epilogue`` (kernel B, ``csrc/plane_epilogue_diag_kernel.cu``; the
+     port of ``_epilogue_fused`` and ``mxu._ext_fold``): the unsigned-plane
      corrections P + 128 colsum + 128 rowsum + 128^2 ks of every slice, the
      plane pairs grouped by byte position, the base-256 carry, the wide
      reduction by R2 = 2^(32 (nl + 1)) and the fold of y^(e+k) with m(y),
-     to [kappa, Nb, ncomp, e, nl] Montgomery limbs.
+     to [kappa, Nb, ncomp, e, nl] Montgomery limbs. A warp lane sums one
+     wrapped diagonal of a patch of plane products; ``epilogue_items``
+     reaches the first port (``csrc/plane_epilogue_kernel.cu``, a thread
+     per plane-pair item), the kernel's in-call baseline, which no path
+     launches.
 
 On CUDA tensors the wrappers launch the kernels; on CPU tensors they run the
 plain versions beside them. Nothing falls back from one to the other, and an
@@ -252,7 +256,18 @@ def epilogue_plain(ring: Ring, P, sM, rows: int, n: int, Nb: int):
     return mxu._ext_fold(ring, Pm, ke // e, Nb)
 
 
-def _epilogue_kernel(ring: Ring, P, sM, rows: int, n: int, Nb: int):
+def diag_groups(ring: Ring, Nb: int) -> int:
+    """b groups a block of kernel B's diagonal kernel takes: a group is the
+    32 / (4 nl) consecutive b of one warp task (one b at nl 8), and a block
+    takes every (i, j) of its groups' b. Chosen from ``chip_smoke.py``'s
+    ``sweep_epilogue_groups`` on the H100 (PERF.md): 8 at nl 8, 4 where Nb
+    is 32 or more (bench.py's b64), else 1."""
+    if ring.nl == 8:
+        return 8
+    return 4 if Nb >= 32 else 1
+
+
+def _epilogue_kernel(kernel: str, ring: Ring, P, sM, rows: int, n: int, Nb: int, *extra):
     dev = P.device
     if P.dtype != torch.int32 or sM.dtype != torch.int32 or sM.device != dev:
         raise ValueError("epilogue: P and sM must be int32 tensors on one device")
@@ -265,23 +280,33 @@ def _epilogue_kernel(ring: Ring, P, sM, rows: int, n: int, Nb: int):
                          f"n={n}, Nb={Nb} of {ring.name}")
     out = torch.empty((kappa, Nb, c, ring.e, ring.nl), dtype=torch.int64, device=dev)
     red = ops.red_rows(ring, dev)
-    code = cuda.kernel("plane_epilogue")(
+    code = cuda.kernel(kernel)(
         P.data_ptr(), sM.data_ptr(), 0 if red is None else red.data_ptr(), out.data_ptr(),
-        nsl, c, mpad, four_l // 4, rows, kappa, Nb, ring.e, ring.nl, n, _K_SLICE,
+        nsl, c, mpad, four_l // 4, rows, kappa, Nb, ring.e, ring.nl, n, _K_SLICE, *extra,
         cuda.field_constants(ring.q, ring.nl), cuda.stream_handle(dev),
     )
-    cuda.check(code, "plane_epilogue")
-    cuda.LAUNCHES["plane_epilogue"] += 1
+    cuda.check(code, kernel)
+    cuda.LAUNCHES[kernel] += 1
     return out
 
 
 def epilogue(ring: Ring, P, sM, rows: int, n: int, Nb: int):
     """Kernel B. P [n_slices, c, Mpad, 4 L] int32 (kernel A's output per
     slice), sM [c, n_slices, Mpad] int32 -> [kappa, Nb, c, e, nl] Montgomery
-    limbs (int64 lanes)."""
+    limbs (int64 lanes); on the card the diagonal kernel,
+    ``csrc/plane_epilogue_diag_kernel.cu``."""
     if P.device.type == "cpu":
         return epilogue_plain(ring, P, sM, rows, n, Nb)
-    return _epilogue_kernel(ring, P, sM, rows, n, Nb)
+    return _epilogue_kernel("plane_epilogue_diag", ring, P, sM, rows, n, Nb, diag_groups(ring, Nb))
+
+
+def epilogue_items(ring: Ring, P, sM, rows: int, n: int, Nb: int):
+    """``epilogue``'s function on kernel B's first port,
+    ``csrc/plane_epilogue_kernel.cu`` (a thread per (b, i, j) item): the
+    diagonal kernel's in-call baseline, launched by no path."""
+    if P.device.type == "cpu":
+        return epilogue_plain(ring, P, sM, rows, n, Nb)
+    return _epilogue_kernel("plane_epilogue", ring, P, sM, rows, n, Nb)
 
 
 # ---------------------------------------------------------------------------
@@ -333,5 +358,5 @@ def ajtai_commit_fused(ring: Ring, pre: FusedPlanes, fcm):
     return epilogue(ring, P, pre.sM, pre.rows, n, Nb)
 
 
-__all__ = ["FusedPlanes", "precompute", "plane_dot", "plane_dot_mma", "epilogue", "empty_batch",
+__all__ = ["FusedPlanes", "precompute", "plane_dot", "plane_dot_mma", "epilogue", "epilogue_items", "empty_batch",
            "aligned_batch", "ajtai_commit_fused"]

@@ -1,6 +1,7 @@
 """The byte-plane commit epilogue's per-output arithmetic
 (latticefold_torch/csrc/plane_epilogue.cuh: the base-256 carry of
-byte-position sums and the wide Montgomery reduction by
+byte-position sums, byte at a time (``carry_pack``) and limb at a time
+(``carry_limbs64``), and the wide Montgomery reduction by
 R2 = 2^(32 (nl + 1))) against Python integers, on the CPU.
 
 The header compiles as plain C++ too (field_common.cuh), so a small harness
@@ -126,3 +127,70 @@ def test_carry_and_wide_reduction_match_python_ints(harness, name):
         assert T == sum(x * y * count for x, y, count in case)
         assert T < q << (32 * (nl + 1))  # the reduction's precondition
         assert len(vals) == nl and got == T * r2inv % q, (case, got)
+
+
+LIMB_HARNESS = r"""
+#include <cstdio>
+#include "plane_epilogue.cuh"
+
+// per case: the number of position sums, then the sums -> the 2NL+2 limbs
+// of carry_limbs64, then those of carry_pack
+template <int NL>
+int run() {
+  int cases;
+  scanf("%d", &cases);
+  for (int k = 0; k < cases; ++k) {
+    int nu;
+    unsigned long long u[64];
+    scanf("%d", &nu);
+    for (int s = 0; s < nu; ++s) scanf("%llu", &u[s]);
+    u32 t[2 * NL + 2], b[2 * NL + 2];
+    carry_limbs64<NL>(u, nu, t);
+    carry_pack<NL>(u, nu, b);
+    for (int i = 0; i < 2 * NL + 2; ++i) printf("%u ", t[i]);
+    for (int i = 0; i < 2 * NL + 2; ++i) printf("%u ", b[i]);
+    printf("\n");
+  }
+  return 0;
+}
+
+int main() {
+  int nl;
+  scanf("%d", &nl);
+  if (nl == 1) return run<1>();
+  if (nl == 2) return run<2>();
+  if (nl == 8) return run<8>();
+  return 1;
+}
+"""
+
+
+@pytest.mark.parametrize("nl", [1, 2, 8])
+def test_limb_carry_matches_byte_carry_and_python_ints(tmp_path, nl):
+    """``carry_limbs64`` (the diagonal kernel's carry) gives the limbs of T
+    for position sums up to 2^63, the same as ``carry_pack``."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ is not on PATH: the epilogue header cannot be compiled on the host")
+    src = tmp_path / "limbs.cpp"
+    src.write_text(LIMB_HARNESS)
+    exe = tmp_path / "limbs"
+    subprocess.run([gxx, "-O1", "-std=c++17", "-I", cuda.CSRC, "-o", str(exe), str(src)],
+                   check=True, capture_output=True, text=True)
+    rng = random.Random(nl * 31 + 5)
+    nu = 8 * nl - 1
+    limit = 32 * (2 * nl + 1)  # T below 2^limit: carry_pack's precondition
+    cases = [[0] * nu, [(1 << 63) - 1] + [0] * (nu - 1), [255] * nu]
+    for bits in (31, 36, 48, 63):
+        for _ in range(4):
+            # u[s] below 2^(limit - 8 s - 4): T below 2^limit
+            cases.append([rng.randrange(1 << max(1, min(bits, limit - 8 * s - 4))) for s in range(nu)])
+    lines = [str(nl), str(len(cases))] + [f"{nu} " + " ".join(map(str, u)) for u in cases]
+    out = subprocess.run([str(exe)], input="\n".join(lines) + "\n", capture_output=True, text=True,
+                         check=True).stdout.split("\n")
+    for u, line in zip(cases, out):
+        vals = [int(v) for v in line.split()]
+        limbs, bytewise = vals[: 2 * nl + 2], vals[2 * nl + 2 :]
+        T = sum(v << (8 * s) for s, v in enumerate(u))
+        assert limbs == bytewise, u
+        assert sum(v << (32 * i) for i, v in enumerate(limbs)) == T and limbs[-1] == 0, u
