@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive latticefold_torch's main paths on one NVIDIA GPU and check them.
 
-  python3 chip_smoke.py   # every path, about 10 min of command time
+  python3 chip_smoke.py   # every path, about 12 min of command time
 
 The paths: one NIFS fold per ring through ``nifs.prove`` / ``nifs.verify``,
 on the identity R1CS of wit_len 4096, x_len 1, with a witness of ones and
@@ -79,12 +79,30 @@ Phases (any failure raises and the script exits non-zero):
    folded witness must open the folded commitment; then the timed proves,
    which must give the same proof; one decomposition batch committed by
    the commit kernel must give the proof's batch commitments; the tests'
-   small fixture
-   folded on the card must give the same proof as on the CPU. The native
+   small fixture folded on the card must give the same proof and folded
+   accumulator bytes (``serialization.serialize_proof`` /
+   ``serialize_lcccs``) as on the CPU, for Goldilocks over a two-step
+   chain (both steps' proofs). The native
    (C++) Poseidon sponge must have built for the rings with q < 2^64. Peak
    device memory is printed. One more Stark prove runs under the profiler
    (device busy s, device kernels, idle share; about 5 min in all, most of
    it spent stopping the profiler and reading ~3 million events).
+3b. The IVC chain of ``latticefold_torch.e2e`` (``run_chain``'s parts:
+   ``setup_chain``, ``fold_steps``, ``prove_step``) on Goldilocks at
+   DP_GOLDILOCKS with the fold phase's instance (wit_len 4096, x_len 1,
+   kappa 9, Ajtai seed 7): 3 steps, each folding the fresh instance into
+   the accumulator of the step before. Each step's prove is counted on its
+   own and must launch the tensor-core CRT 31, the Hopper dot 2 and the
+   diagonal epilogue 2 times and nothing else; step 1's proof bytes must
+   equal the fold phase's counted prove's; every proof and accumulator
+   must survive serialize -> deserialize -> serialize; the verifier
+   replays the steps from the bootstrap accumulator and must reach the
+   prover's accumulator after each; w_3 must open acc_3.cm; and step 3,
+   proved again from the serialized acc_2 and w_2's digits
+   (``serialize_lcccs``, ``serialize_witness_f``,
+   ``Witness.from_f_coeff``), must give the same proof bytes. Recorded:
+   each step's prove seconds, proof bytes (raw and zlib), peak device
+   memory and the memory held at its start; the verify seconds.
 4. Print the ``kernels`` JSON line (one entry per kernel and ring, the
    SIMT CRT, the item-per-thread epilogue and the commit kernel marked off
    the main path, and per kernel, mode and shape of phase 1b), then the
@@ -127,6 +145,12 @@ PATHS = {
     "stark": ("DP_STARK_E2E", 17, 1),
 }
 PROFILED = "stark"  # the ring whose fold runs one more prove under the profiler
+# the IVC chain (latticefold_torch.e2e): ring, kappa and steps at WIT_LEN,
+# X_LEN, with the fold phase's instance; the step after which it is
+# checkpointed and resumed; the steps of the small fixture's chain
+CHAIN = ("goldilocks", 9, 3)
+CHAIN_RESUME_AFTER = 2
+SMALL_CHAIN_STEPS = 2
 # bench.py's headline commit (bench.py:114-151): ring, kappa, n, Ajtai seed, batches
 BENCH_COMMIT = ("goldilocks", 9, 1 << 15, 1, (16, 64))
 # the two-slice batch commit: bench.py's ring, kappa and Nb 16 at n 2^16
@@ -345,12 +369,15 @@ def sponge_timer(sponge_cls, acc: dict):
             setattr(sponge_cls, k, fn)
 
 
-def small_fold(name, device):
-    """The tests' small fixture (kappa = 4, seed 7) for ``name`` folded on
-    ``device``; returns (proof, folded)."""
+def small_fold(name, device, steps=1):
+    """The tests' small fixture (kappa = 4, seed 7) for ``name`` folded
+    ``steps`` times on ``device`` (each step folds the fresh instance into
+    the accumulator of the one before, on a fresh transcript); returns each
+    step's proof bytes and the last folded accumulator's bytes
+    (``serialization.serialize_proof`` / ``serialize_lcccs``)."""
     import latticefold_torch.nifs as nifs
     import latticefold_torch.nifs.linearization as linearization
-    from latticefold_torch import params
+    from latticefold_torch import params, serialization
     from latticefold_torch.arith.ccs import CCCS, CCS, get_test_r1cs, get_test_z_split
     from latticefold_torch.arith.witness import Witness
     from latticefold_torch.commitment import AjtaiScheme
@@ -366,8 +393,23 @@ def small_fold(name, device):
     wit = Witness.from_w_ccs(ring, dp, ops.to_device(ring, w_host, device), n_pad=ccs.m)
     cm_i = CCCS(cm=wit.commit(scheme), x_ccs=x_ccs)
     acc, _ = linearization.prove(cm_i, wit, Transcript(ring), ccs)
-    folded, _, proof = nifs.prove(acc, wit, cm_i, wit, Transcript(ring), ccs, scheme, dp)
-    return proof, folded
+    w_acc, proofs = wit, []
+    for _ in range(steps):
+        acc, w_acc, proof = nifs.prove(acc, w_acc, cm_i, wit, Transcript(ring), ccs, scheme, dp)
+        proofs.append(serialization.serialize_proof(ring, proof))
+    return proofs, serialization.serialize_lcccs(ring, acc)
+
+
+def prove_launches(dp, n) -> dict:
+    """The launches of one ``nifs.prove`` at Ajtai width ``n``: 2K crt + 1
+    icrt on the tensor-core CRT, and per decomposition batch commit one
+    Hopper dot per 2^15-term slice and one diagonal epilogue; no other
+    kernel (the SIMT CRT, the item-per-thread epilogue and the commit
+    kernel are baselines and cross-checks only)."""
+    from latticefold_torch.rings import plane_commit
+
+    slices = -(-n // plane_commit._K_SLICE)
+    return {"crt_tc": 2 * dp.K + 1, "plane_dot_sm90": 2 * slices, "plane_epilogue_diag": 2}
 
 
 def run_fold(name, dp, scheme, reps, device, profile=False):
@@ -378,13 +420,13 @@ def run_fold(name, dp, scheme, reps, device, profile=False):
 
     import latticefold_torch.nifs as nifs
     import latticefold_torch.nifs.linearization as linearization
-    from latticefold_torch import cuda
+    from latticefold_torch import cuda, serialization
     from latticefold_torch.arith.ccs import CCCS, CCS, get_test_dummy_r1cs
     from latticefold_torch.arith.witness import Witness
     from latticefold_torch.native import NativeSponge
     from latticefold_torch.arith.ccs import Commitment
     from latticefold_torch.nifs import decomposition
-    from latticefold_torch.rings import ops, plane_commit
+    from latticefold_torch.rings import ops
     from latticefold_torch.transcript import Transcript
 
     ring = scheme.ring
@@ -408,10 +450,7 @@ def run_fold(name, dp, scheme, reps, device, profile=False):
         return nifs.prove(acc, wit, cm_i, wit, Transcript(ring), ccs, scheme, dp)
 
     # the main path, counted: every kernel of the path must launch in it,
-    # as often as the code says (2K crt + 1 icrt on the tensor-core CRT; per
-    # decomposition batch commit one Hopper dot per 2^15-term slice and one
-    # diagonal epilogue), and no other (the SIMT CRT, the item-per-thread
-    # epilogue and the commit kernel are baselines and cross-checks only)
+    # as often as the code says (prove_launches), and no other
     torch.cuda.reset_peak_memory_stats(device)
     cuda.reset_launches()
     sponge = {"s": 0.0}
@@ -422,8 +461,7 @@ def run_fold(name, dp, scheme, reps, device, profile=False):
     first_s = time.perf_counter() - t0
     launches = {k: v for k, v in cuda.LAUNCHES.items() if v}  # and no other kernel
     log(f"[fold {name}] first prove {first_s:.3f} s (host sponge {sponge['s']:.3f} s); launches {launches}")
-    slices = -(-scheme.n // plane_commit._K_SLICE)
-    expected = {"crt_tc": 2 * dp.K + 1, "plane_dot_sm90": 2 * slices, "plane_epilogue_diag": 2}
+    expected = prove_launches(dp, scheme.n)
     if launches != expected:
         raise AssertionError(f"launches per prove {launches}, expected {expected}")
 
@@ -459,10 +497,93 @@ def run_fold(name, dp, scheme, reps, device, profile=False):
     log(f"[fold {name}] the proof's {dp.K - 1} batch commitments equal the commit kernel's")
     out = dict(m=ccs.m, n=scheme.n, kappa=scheme.kappa, setup_s=setup_s, first_prove_s=first_s,
                sponge_s=sponge["s"], prove_s=prove_s, verify_s=verify_s, peak_bytes=peak,
-               launches=launches)
+               launches=launches, proof_bytes=serialization.serialize_proof(ring, proof))
     if profile:
         out["profile"] = profile_prove(name, prove)
     return out
+
+
+def run_chain_phase(device, fold_proof: bytes):
+    """Phase 3b: the IVC chain of ``latticefold_torch.e2e`` (``CHAIN``) on
+    the card. Each step's prove is counted on its own (the counts set to 0
+    just before it and read just after) and must launch what the fold
+    phase's prove launches; step 1's proof bytes must be the fold phase's
+    (the same instance and transcript); every proof and accumulator must
+    survive serialize -> deserialize -> serialize; the verifier replays the
+    steps from the bootstrap accumulator and must reach the prover's
+    accumulator after each; the last witness must open the last
+    commitment; and step CHAIN_RESUME_AFTER + 1, proved again from the
+    checkpoint bytes of the accumulator and witness before it, must give
+    the same proof bytes. Returns the record; raises on any failed check."""
+    import zlib
+
+    import torch
+
+    from latticefold_torch import e2e, nifs, serialization as ser
+    from latticefold_torch.arith.witness import Witness
+    from latticefold_torch.transcript import Transcript
+
+    name, kappa, steps = CHAIN
+    s = e2e.setup_chain(name, WIT_LEN, X_LEN, kappa, device)
+    ring, dp = s.ring, s.dp
+    expected = prove_launches(dp, s.scheme.n)
+    log(f"[chain {name}] wit_len={WIT_LEN} m={s.ccs.m} n={s.scheme.n} kappa={kappa}: setup {s.setup_s:.2f} s")
+    accs, checkpoint, rec = [], {}, []
+
+    def on_step(i, acc, w_acc, step):
+        proof = ser.serialize_proof(ring, step.proof)
+        acc_bytes = ser.serialize_lcccs(ring, acc)
+        if (ser.serialize_proof(ring, ser.deserialize_proof(ring, proof)) != proof
+                or ser.serialize_lcccs(ring, ser.deserialize_lcccs(ring, acc_bytes)) != acc_bytes):
+            raise AssertionError(f"chain step {i}: the proof or accumulator does not survive a round trip")
+        if step.launches != expected:
+            raise AssertionError(f"chain step {i}: launches {step.launches}, expected {expected}")
+        if i == 1 and proof != fold_proof:
+            raise AssertionError("chain step 1: the proof differs from the fold phase's")
+        if i == CHAIN_RESUME_AFTER:
+            checkpoint.update(acc=acc_bytes, f=ser.serialize_witness_f(ring, w_acc.f_coeff))
+        accs.append(acc_bytes)
+        rec.append(dict(step=i, prove_s=step.prove_s, proof_bytes=len(proof),
+                        proof_zlib_bytes=len(zlib.compress(proof)), peak_bytes=step.peak_bytes,
+                        live_bytes=step.live_bytes, launches=step.launches, proof=proof))
+        log(f"[chain {name}] step {i}: prove {step.prove_s:.3f} s, proof {len(proof)} B "
+            f"({rec[-1]['proof_zlib_bytes']} B zlib), peak device memory {step.peak_bytes} B "
+            f"({step.live_bytes} B held at its start), launches {step.launches}; round trips hold")
+
+    res = e2e.fold_steps(s, steps, on_step)
+
+    t0 = time.perf_counter()
+    vacc = s.acc0
+    for i, st in enumerate(res.steps):
+        vacc = nifs.verify(vacc, s.cm_i, st.proof, Transcript(ring), s.ccs, dp)
+        if ser.serialize_lcccs(ring, vacc) != accs[i]:
+            raise AssertionError(f"chain step {i + 1}: the verifier's accumulator differs from the prover's")
+    verify_s = time.perf_counter() - t0
+    if res.w_acc.commit(s.scheme) != res.acc.cm:
+        raise AssertionError(f"chain: w_{steps} does not open acc_{steps}.cm")
+    log(f"[chain {name}] the verifier replays all {steps} steps in {verify_s:.3f} s and reaches the "
+        f"prover's accumulator after each; w_{steps} opens acc_{steps}.cm")
+
+    # resume from the checkpoint: the accumulator and the witness's digits
+    del res
+    acc = ser.deserialize_lcccs(ring, checkpoint["acc"])
+    f_coeff = ser.deserialize_witness_f(ring, checkpoint["f"], device)
+    w_acc = Witness.from_f_coeff(ring, dp, f_coeff, n_pad=s.ccs.m)
+    _, _, again = e2e.prove_step(s, acc, w_acc)
+    if again.launches != expected:
+        raise AssertionError(f"chain: the resumed step launched {again.launches}, expected {expected}")
+    if ser.serialize_proof(ring, again.proof) != rec[CHAIN_RESUME_AFTER]["proof"]:
+        raise AssertionError(f"chain: step {CHAIN_RESUME_AFTER + 1} resumed from the checkpoint "
+                             "gives another proof")
+    log(f"[chain {name}] step {CHAIN_RESUME_AFTER + 1} resumed from the checkpoint "
+        f"({len(checkpoint['acc'])} + {len(checkpoint['f'])} B): the same proof bytes "
+        f"(prove {again.prove_s:.3f} s, launches {again.launches})")
+    for r in rec:
+        del r["proof"]
+    del s, acc, w_acc, f_coeff, again
+    torch.cuda.empty_cache()
+    return dict(ring=name, kappa=kappa, steps=rec, verify_s=verify_s,
+                checkpoint_bytes=dict(lcccs=len(checkpoint["acc"]), witness_f=len(checkpoint["f"])))
 
 
 def profile_prove(name, prove):
@@ -1128,21 +1249,30 @@ def main() -> int:
     record["probes"], probe_entries = check_probes(device)
     entries += probe_entries
     # phases 2 and 3, one ring after the other
+    chain_fold_proof = None  # the fold phase's proof on the chain's ring
     for name, (preset, kappa, reps) in PATHS.items():
         dp = getattr(params, preset)
         ring = get_ring(name)
         scheme = AjtaiScheme(ring, kappa, WIT_LEN * dp.L, seed=7, device=device)
         kres = check_kernels(name, dp, scheme, device)
         fold = run_fold(name, dp, scheme, reps, device, profile=name == PROFILED)
-        proof_card, folded_card = small_fold(name, device)
-        proof_cpu, folded_cpu = small_fold(name, torch.device("cpu"))
-        if proof_card != proof_cpu or folded_card.cm != folded_cpu.cm:
-            raise AssertionError(f"small fold [{name}]: the card's proof differs from the CPU's")
-        log(f"[fold {name}] small fixture: the card's proof equals the CPU's")
+        steps = SMALL_CHAIN_STEPS if name == CHAIN[0] else 1
+        card = small_fold(name, device, steps)
+        if card != small_fold(name, torch.device("cpu"), steps):
+            raise AssertionError(f"small fold [{name}]: the card's proof or accumulator bytes differ from the CPU's")
+        log(f"[fold {name}] small fixture, {steps} step(s): the card's proof and accumulator bytes "
+            f"equal the CPU's ({[len(b) for b in card[0]]} B of proof)")
+        proof_bytes = fold.pop("proof_bytes")
+        if name == CHAIN[0]:
+            chain_fold_proof = proof_bytes
         record["rings"][name] = dict(kernels={f"{k}:{s}": v for (k, s), v in kres.items()}, fold=fold)
         entries += kernel_entries(name, dp, kappa, kres, fold["launches"], record["plane_commit"][f"{name} fold"])
         del scheme
         torch.cuda.empty_cache()
+
+    # phase 3b: the IVC chain
+    record["chain"] = run_chain_phase(device, chain_fold_proof)
+    record["chain"]["card"] = smi
 
     # phase 4: the record
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:

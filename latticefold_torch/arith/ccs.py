@@ -36,6 +36,44 @@ class R1CS:
             ring.rmul(a, b) == c for a, b, c in zip(Az, Bz, Cz)
         )
 
+    def relax(self) -> "RelaxedR1CS":
+        """Nova-style relaxation with u = 1, E = 0 (r1cs.rs:43-54)."""
+        return RelaxedR1CS(
+            l=self.l,
+            A=self.A,
+            B=self.B,
+            C=self.C,
+            u=None,  # None encodes ring.one() without needing the ring here
+            E=None,  # None encodes the all-zero error vector
+        )
+
+
+@dataclass
+class RelaxedR1CS:
+    """Relaxed R1CS (Nova, eprint 2021/370 p.14): Az o Bz = u*(Cz) + E
+    (r1cs.rs:71-101).
+
+    ``u`` is a ring element (None = one); ``E`` a host list of m ring
+    elements (None = zeros)."""
+
+    l: int
+    A: SparseMatrix
+    B: SparseMatrix
+    C: SparseMatrix
+    u: object = None
+    E: list = None
+
+    def check_relation(self, ring: Ring, z_host: list) -> bool:
+        Az = self.A.mat_vec_host(z_host)
+        Bz = self.B.mat_vec_host(z_host)
+        Cz = self.C.mat_vec_host(z_host)
+        u = ring.one() if self.u is None else self.u
+        E = [ring.zero()] * len(Cz) if self.E is None else self.E
+        return all(
+            ring.rmul(a, b) == ring.radd(ring.rmul(u, c), e)
+            for a, b, c, e in zip(Az, Bz, Cz, E)
+        )
+
 
 @dataclass
 class CCS:
@@ -208,3 +246,50 @@ def get_test_dummy_r1cs(ring: Ring, x_len: int, wit_len: int, rows: int) -> R1CS
     B = SparseMatrix(ring, rows, ncols, [list(r) for r in ident])
     C = SparseMatrix(ring, rows, ncols, [list(r) for r in ident])
     return R1CS(l=x_len, A=A, B=B, C=C)
+
+
+def get_test_dummy_r1cs_non_scalar(ring: Ring, x_len: int, wit_len: int, rows: int, witness: list) -> R1CS:
+    """A=B=identity, C = diag(witness) so that Az o Bz = Cz for z = witness-ish
+    (r1cs.rs:170-223)."""
+    ncols = x_len + wit_len + 1
+    ident = [[(1, i)] for i in range(rows)]
+    A = SparseMatrix(ring, rows, ncols, [list(r) for r in ident])
+    B = SparseMatrix(ring, rows, ncols, [list(r) for r in ident])
+    C = SparseMatrix(ring, rows, ncols, [[(witness[i], i)] for i in range(rows)])
+    return R1CS(l=x_len, A=A, B=B, C=C)
+
+
+def get_test_dummy_degree_three_ccs_non_scalar(
+    ring: Ring, witness: list, x_len: int, wit_len: int, L: int
+) -> CCS:
+    """Degree-3 CCS of arbitrary size (ccs.rs:14-43): A=B=C=identity,
+    D = diag(w_i^2) so that (Az)(Bz)(Cz) = Dz for z built from the witness;
+    S = [[0,1,2],[3]], c = [1, -1]."""
+    ncols = x_len + wit_len + 1
+    rows = len(witness)
+    ident = [[(1, i)] for i in range(rows)]
+    A = SparseMatrix(ring, rows, ncols, [list(r) for r in ident])
+    B = SparseMatrix(ring, rows, ncols, [list(r) for r in ident])
+    C = SparseMatrix(ring, rows, ncols, [list(r) for r in ident])
+    D = SparseMatrix(
+        ring, rows, ncols,
+        [[(ring.rmul(witness[i], witness[i]), i)] for i in range(rows)],
+    )
+    m = rows
+    ccs = CCS(
+        ring=ring, m=m, n=ncols, l=1, t=4, q=2, d=3,
+        s=max(1, (m - 1).bit_length()), s_prime=max(1, (ncols - 1).bit_length()),
+        M=[A, B, C, D], S=[[0, 1, 2], [3]], c=[1, -1],
+    )
+    size = _next_pow2(max((ccs.n - ccs.l - 1) * L, ccs.m))
+    ccs.pad_rows_to(size)
+    return ccs
+
+
+def get_test_dummy_z_split_ntt(ring: Ring, x_len: int, wit_len: int):
+    """(one, ones statement, ramp witness) (r1cs.rs:289-306)."""
+    one = ring.one()
+    statement = [ring.one()] * x_len
+    wit_elt = tuple(ring.K.embed(i) for i in range(ring.ncomp))
+    witness = [wit_elt] * wit_len
+    return one, statement, witness

@@ -56,3 +56,23 @@ def test_entry_points_refuse_without_a_card():
         convert.tensor(np.zeros((2, ring.nl), dtype=np.uint32))
     # and the same calls run when the CPU is asked for
     assert AjtaiScheme(ring, 2, 8, seed=1, device="cpu").matrix.device.type == "cpu"
+
+
+def test_chain_entry_points_refuse_without_a_card():
+    """``python -m latticefold_torch.e2e`` runs on the card unless
+    ``--device cpu`` is given, and a checkpointed witness is read onto the
+    card unless the caller names the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    from latticefold_torch import e2e, serialization
+    from latticefold_torch.rings.construct import get_ring
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        e2e.main([])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        e2e.run_chain(wit_len=2)
+    ring = get_ring("goldilocks")
+    blob = serialization.serialize_witness_f(ring, torch.zeros((1, ring.d, ring.nl), dtype=torch.int64))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serialization.deserialize_witness_f(ring, blob)
+    assert serialization.deserialize_witness_f(ring, blob, "cpu").device.type == "cpu"

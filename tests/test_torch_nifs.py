@@ -1,6 +1,9 @@
 """The port's NIFS fold against the JAX package's, on the fixture of
 tests/test_nifs.py::setup() (kappa = 4, seed 7): Goldilocks at DP_GOLDILOCKS
-against the JAX prover, and BabyBear (DP_BABYBEAR) and Stark (DP_STARK_E2E)
+against the JAX prover, two steps of the IVC chain of
+tests/test_nifs.py::test_nifs_second_fold_and_rejection (the second folds
+the fresh instance into the first's folded accumulator and witness), and
+BabyBear (DP_BABYBEAR) and Stark (DP_STARK_E2E)
 folded by the port alone -- its verifier accepts and the folded witness
 opens the folded commitment -- with their comparison against the JAX prover
 slow-marked, as the JAX package's own e2e tests of these two rings are (its
@@ -9,7 +12,8 @@ fold of them runs eagerly on the CPU).
 Both folds of a comparison run once, in one test: the driver's xdist workers
 would each rerun a shared fixture, and the JAX fold is the expensive part.
 Tolerance: exact equality -- every value is an integer mod q, and the
-serialized proofs must be the same bytes."""
+serialized proofs must be the same bytes, from the port's serialization
+module and from the JAX package's alike."""
 
 import contextlib
 
@@ -26,6 +30,7 @@ import latticefold_tpu.nifs.folding as folding
 import latticefold_tpu.nifs.linearization as linearization
 import latticefold_tpu.rings.ops as rops
 from latticefold_torch import convert
+from latticefold_torch import serialization as tser
 from latticefold_torch.arith.ccs import CCCS as TCCCS
 from latticefold_torch.arith.ccs import CCS as TCCS
 from latticefold_torch.arith.ccs import get_test_r1cs as tget_test_r1cs
@@ -40,7 +45,7 @@ from latticefold_tpu.arith.witness import Witness
 from latticefold_tpu.commitment import AjtaiScheme
 from latticefold_tpu import params
 from latticefold_tpu.rings.construct import get_ring
-from latticefold_tpu.serialization import serialize_proof
+from latticefold_tpu.serialization import serialize_lcccs, serialize_proof
 from latticefold_tpu.transcript import Transcript
 
 KAPPA = 4
@@ -57,7 +62,7 @@ def _jax_fold(name="goldilocks", preset="DP_GOLDILOCKS"):
     acc, _ = linearization.prove(cm_i, wit, Transcript(ring), ccs)
     folded, w0, proof = nifs.prove(acc, wit, cm_i, wit, Transcript(ring), ccs, scheme, dp)
     return dict(ring=ring, ccs=ccs, scheme=scheme, wit=wit, cm_i=cm_i, acc=acc,
-                folded=folded, w0=w0, proof=proof)
+                folded=folded, w0=w0, proof=proof, dp=dp)
 
 
 def _port_fold(name="goldilocks", preset="DP_GOLDILOCKS"):
@@ -72,8 +77,13 @@ def _port_fold(name="goldilocks", preset="DP_GOLDILOCKS"):
     # keep the witness arrays: the prover consumes the decomposed ones only
     arrays = {k: convert.to_numpy(getattr(wit, k)) for k in ("w_ccs", "f", "f_coeff", "f_hat")}
     folded, w0, proof = tnifs.prove(acc, wit, cm_i, wit, TTranscript(ring), ccs, scheme, dp)
-    return dict(ring=ring, ccs=ccs, scheme=scheme, wit_arrays=arrays, cm_i=cm_i,
+    return dict(ring=ring, ccs=ccs, scheme=scheme, wit=wit, wit_arrays=arrays, cm_i=cm_i,
                 acc=acc, folded=folded, w0=w0, proof=proof, dp=dp)
+
+
+def _second_step(f, prove, transcript):
+    """The chain's step 2: the fresh instance folded into (folded, w0)."""
+    return prove(f["folded"], f["w0"], f["cm_i"], f["wit"], transcript(f["ring"]), f["ccs"], f["scheme"], f["dp"])
 
 
 def _check_port_accepts(p):
@@ -108,6 +118,7 @@ def test_port_fold_matches_jax():
     assert pp.folding_proof.theta_s == jp.folding_proof.theta_s
     assert pp.folding_proof.eta_s == jp.folding_proof.eta_s
     assert serialize_proof(j["ring"], pp) == serialize_proof(j["ring"], jp)
+    assert tser.serialize_proof(p["ring"], pp) == serialize_proof(j["ring"], jp)
 
     # the folded accumulator and witness
     assert p["folded"].cm.vals == j["folded"].cm.vals
@@ -118,6 +129,20 @@ def test_port_fold_matches_jax():
     # the folded witness opens the folded commitment
     nifs.verify(j["acc"], j["cm_i"], pp, Transcript(j["ring"]), j["ccs"], params.DP_GOLDILOCKS)
     _check_port_accepts(p)
+
+    # step 2 on both sides: a folded accumulator (non-trivial r, v, u, x_w,
+    # h) and a folded witness (coefficients over (-B, B)) go in
+    jf2, jw2, jp2 = _second_step(j, nifs.prove, Transcript)
+    pf2, pw2, pp2 = _second_step(p, tnifs.prove, TTranscript)
+    want = serialize_proof(j["ring"], jp2)
+    assert serialize_proof(j["ring"], pp2) == want
+    assert tser.serialize_proof(p["ring"], pp2) == want
+    assert tser.serialize_lcccs(p["ring"], pf2) == serialize_lcccs(j["ring"], jf2)
+    assert (pf2.r, pf2.v, pf2.u, pf2.x_w, pf2.h) == (jf2.r, jf2.v, jf2.u, jf2.x_w, jf2.h)
+    assert pf2.cm.vals == jf2.cm.vals
+    assert np.array_equal(convert.to_numpy(pw2.f), np.asarray(jw2.f))
+    assert np.array_equal(convert.to_numpy(pw2.f_coeff), np.asarray(jw2.f_coeff))
+    nifs.verify(j["folded"], j["cm_i"], pp2, Transcript(j["ring"]), j["ccs"], params.DP_GOLDILOCKS)
 
 
 @pytest.mark.parametrize("name,preset", [("babybear", "DP_BABYBEAR"), ("stark", "DP_STARK_E2E")])
