@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Drive latticefold_torch's main paths on one NVIDIA GPU and check them.
 
-  python3 chip_smoke.py   # every path, about 12 min of command time
+  python3 chip_smoke.py   # every path, about 15 min of command time
 
 The paths: one NIFS fold per ring through ``nifs.prove`` / ``nifs.verify``,
 on the identity R1CS of wit_len 4096, x_len 1, with a witness of ones and
-Ajtai seed 7 on the standard (non-big-m) path:
+Ajtai seed 7 on the standard path (the port's rule must choose it there):
 
   goldilocks  DP_GOLDILOCKS  kappa 9   the repo's fold sweep's first row
   frog        DP_FROG        kappa 12  the smallest kappa that
@@ -13,7 +13,10 @@ Ajtai seed 7 on the standard (non-big-m) path:
   stark       DP_STARK_E2E   kappa 17  accepts at wit_len 4096
 
 Frog's fold runs its counted prove only (no timed prove): it is there so
-that the kernels run at its shapes (nl 2, e 4, d 16) on a path.
+that the kernels run at its shapes (nl 2, e 4, d 16) on a path. BabyBear's
+and Stark's run only their counted prove too (Stark's profiled prove
+follows), and Goldilocks one timed prove, to leave room in the time limit
+for phases 3c and 3d.
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -29,8 +32,10 @@ Phases (any failure raises and the script exits non-zero):
    - at bench.py's headline shape (Goldilocks, kappa 9, n 2^15, seed 1,
      seeded witness batches Nb = 16 and 64), at two slices (the same ring
      and kappa, n 2^16, Nb 16: two kernel A launches, one kernel B launch
-     with nsl 2) and at each ring's fold commit shape (the fold phase's
-     kappa, n = wit_len L, Nb = K - 1): equal to ``commit_batch_cm`` (the
+     with nsl 2) and at each fold's commit shape (the fold phase's
+     kappa, n = wit_len L, Nb = K - 1, for every ring, for phase 3c's
+     preset and for phase 3d's wit_len 32768: five kernel A launches, one
+     kernel B launch with nsl 5): equal to ``commit_batch_cm`` (the
      commit kernel) and, at bench.py's shape, to the plain byte-plane
      route (``mxu.ajtai_commit_cm``); the Hopper dot, the mma.sync dot and
      kernel B each equal to their plain versions, kernel B also to the
@@ -103,7 +108,28 @@ Phases (any failure raises and the script exits non-zero):
    ``Witness.from_f_coeff``), must give the same proof bytes. Recorded:
    each step's prove seconds, proof bytes (raw and zlib), peak device
    memory and the memory held at its start; the verify seconds.
-4. Print the ``kernels`` JSON line (one entry per kernel and ring, the
+3c. Moderate b: Goldilocks at DP_GOLDILOCKS_B16 (b 16, K 4, a degree-32
+   folding sumcheck) on the fold phase's instance: one counted prove
+   (the tensor-core CRT 2K + 1 = 9, the Hopper dot 2, the diagonal
+   epilogue 2, nothing else), verified, w0 opens, prove s and peak
+   recorded; then the tests' small fixture folded on the card at
+   DP_GOLDILOCKS_B16 (verified, w0 opens, its proof and accumulator bytes
+   equal to the CPU's fold). DP_STARK_FOLDING's small fold is left out
+   (140.9 s on the card; its bytes are held against the JAX prover by a
+   slow-marked CPU test).
+3d. Big m: the fold phase's Goldilocks instance forced onto the big-m
+   path (``big_m=True, expand_nvars=13``: J = 2 W-tensor rounds), whose
+   proof bytes must equal the fold phase's counted prove's, its peak
+   printed beside the standard path's; then Goldilocks at wit_len 32768
+   (the repo sweep's row: m 2^18, n 163840, J = 5) through
+   ``latticefold_torch.e2e`` with no path asked for: phase 2's kernel
+   checks at its shapes, then one counted prove on the path the port's
+   rule chooses, which must be the big-m one (the tensor-core CRT 31, the
+   Hopper dot 10: five slices for each of the 2 batch commits, the
+   diagonal epilogue 2, nothing else), verified, w0 opens, peak device
+   memory under 90 % of the card's, prove s, verify s, peak and the
+   memory held at its start recorded.
+4. Print the ``kernels`` JSON line (one entry per kernel and fold path, the
    SIMT CRT, the item-per-thread epilogue and the commit kernel marked off
    the main path, and per kernel, mode and shape of phase 1b), then the
    card line, then the last line
@@ -139,10 +165,10 @@ WIT_LEN = 4096
 X_LEN = 1
 # ring -> (preset, kappa, timed proves after the counted one); in this order
 PATHS = {
-    "goldilocks": ("DP_GOLDILOCKS", 9, 2),
+    "goldilocks": ("DP_GOLDILOCKS", 9, 1),
     "frog": ("DP_FROG", 12, 0),
-    "babybear": ("DP_BABYBEAR", 6, 1),
-    "stark": ("DP_STARK_E2E", 17, 1),
+    "babybear": ("DP_BABYBEAR", 6, 0),
+    "stark": ("DP_STARK_E2E", 17, 0),
 }
 PROFILED = "stark"  # the ring whose fold runs one more prove under the profiler
 # the IVC chain (latticefold_torch.e2e): ring, kappa and steps at WIT_LEN,
@@ -151,6 +177,18 @@ PROFILED = "stark"  # the ring whose fold runs one more prove under the profiler
 CHAIN = ("goldilocks", 9, 3)
 CHAIN_RESUME_AFTER = 2
 SMALL_CHAIN_STEPS = 2
+# phase 3c, moderate b: the fold phase's instance of this ring and kappa at
+# this preset, and the small fixture at it (the small fixture at
+# DP_STARK_FOLDING took 140.9 s on the card, PERF.md section 4: left out)
+MODERATE_B = ("goldilocks", "DP_GOLDILOCKS_B16", 9)
+# phase 3d, big m: the fold phase's Goldilocks instance forced onto the
+# big-m path with this expand_nvars (J = log m - it W-tensor rounds), then
+# the repo sweep's wit_len 32768 row (benches/sweep_e2e.py:54-62: kappa 9,
+# x_len 1, seed 7; m 2^18, n 163840) through latticefold_torch.e2e, where
+# the path rule must choose the big-m path
+BIGM_EXPAND_NVARS = 13
+BIGM = ("goldilocks", 32768, 9)
+PEAK_SHARE_MAX = 0.9  # a fold's peak device memory must stay under this share of the card's
 # bench.py's headline commit (bench.py:114-151): ring, kappa, n, Ajtai seed, batches
 BENCH_COMMIT = ("goldilocks", 9, 1 << 15, 1, (16, 64))
 # the two-slice batch commit: bench.py's ring, kappa and Nb 16 at n 2^16
@@ -255,7 +293,7 @@ def commit_plain(ring, matrix, f):
     return out
 
 
-def check_crt(name, ring, n, device, flush):
+def check_crt(name, ring, n, device, flush, wit_len=WIT_LEN):
     """Phase 2's CRT for one ring: the tensor-core kernel against both plain
     versions and the SIMT kernel, each shape, all timed in this call.
     Returns {(kernel, shape): numbers}."""
@@ -267,7 +305,7 @@ def check_crt(name, ring, n, device, flush):
     d, nl = ring.d, ring.nl
     K, cols = 4 * d * nl, 8 * nl * d
     # icrt of the input witness, crt of each digit witness, icrt of the folded witness
-    for which, N, seed in (("icrt", WIT_LEN, 1), ("crt", n, 2), ("icrt", n, 5)):
+    for which, N, seed in (("icrt", wit_len, 1), ("crt", n, 2), ("icrt", n, 5)):
         x = rand_field(ring, (N, d), seed, device)
         mat = ops._device_mat(ring, which, device)
         got = ops._transform_tc(ring, which, x)
@@ -303,7 +341,7 @@ def check_crt(name, ring, n, device, flush):
     return results
 
 
-def check_kernels(name, dp, scheme, device):
+def check_kernels(name, dp, scheme, device, wit_len=WIT_LEN):
     """Phase 2 for one ring: each kernel against its plain version at the
     path's shapes. Returns {(kernel, shape): numbers}."""
     import torch
@@ -313,7 +351,7 @@ def check_kernels(name, dp, scheme, device):
     ring = scheme.ring
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)  # > 50 MB L2
     n = scheme.n
-    results = check_crt(name, ring, n, device, flush)
+    results = check_crt(name, ring, n, device, flush, wit_len)
 
     kappa = scheme.kappa
     for Nb, seed in ((dp.K - 1, 3), (1, 4)):
@@ -369,12 +407,14 @@ def sponge_timer(sponge_cls, acc: dict):
             setattr(sponge_cls, k, fn)
 
 
-def small_fold(name, device, steps=1):
+def small_fold(name, device, steps=1, preset=None, verify=False):
     """The tests' small fixture (kappa = 4, seed 7) for ``name`` folded
     ``steps`` times on ``device`` (each step folds the fresh instance into
-    the accumulator of the one before, on a fresh transcript); returns each
-    step's proof bytes and the last folded accumulator's bytes
-    (``serialization.serialize_proof`` / ``serialize_lcccs``)."""
+    the accumulator of the one before, on a fresh transcript) at ``preset``
+    (default: the fold phase's); returns each step's proof bytes and the
+    last folded accumulator's bytes (``serialization.serialize_proof`` /
+    ``serialize_lcccs``). With ``verify``, each step's proof must pass the
+    port's verifier and its folded witness must open its commitment."""
     import latticefold_torch.nifs as nifs
     import latticefold_torch.nifs.linearization as linearization
     from latticefold_torch import params, serialization
@@ -385,7 +425,7 @@ def small_fold(name, device, steps=1):
     from latticefold_torch.rings.construct import get_ring
     from latticefold_torch.transcript import Transcript
 
-    dp = getattr(params, PATHS[name][0])
+    dp = getattr(params, preset or PATHS[name][0])
     ring = get_ring(name)
     ccs = CCS.from_r1cs_padded(ring, get_test_r1cs(ring), W=4, L=dp.L)
     _, x_ccs, w_host = get_test_z_split(ring, 3)
@@ -395,9 +435,48 @@ def small_fold(name, device, steps=1):
     acc, _ = linearization.prove(cm_i, wit, Transcript(ring), ccs)
     w_acc, proofs = wit, []
     for _ in range(steps):
+        prev = acc
         acc, w_acc, proof = nifs.prove(acc, w_acc, cm_i, wit, Transcript(ring), ccs, scheme, dp)
         proofs.append(serialization.serialize_proof(ring, proof))
+        if verify:
+            folded_v = nifs.verify(prev, cm_i, proof, Transcript(ring), ccs, dp)
+            if (folded_v.r, folded_v.v, folded_v.u, folded_v.cm) != (acc.r, acc.v, acc.u, acc.cm):
+                raise AssertionError(f"small fold [{name} {dp}]: the verifier's accumulator differs")
+            if w_acc.commit(scheme) != acc.cm:
+                raise AssertionError(f"small fold [{name} {dp}]: the folded witness does not open")
     return proofs, serialization.serialize_lcccs(ring, acc)
+
+
+@contextlib.contextmanager
+def bigm_calls():
+    """Counts the calls of ``sumcheck.prove_host_bigm`` (the big-m path's
+    sumcheck; the standard path never calls it) while the block runs."""
+    from latticefold_torch import sumcheck
+
+    orig = sumcheck.prove_host_bigm
+    calls = [0]
+
+    def spy(*args, **kw):
+        calls[0] += 1
+        return orig(*args, **kw)
+
+    sumcheck.prove_host_bigm = spy
+    try:
+        yield calls
+    finally:
+        sumcheck.prove_host_bigm = orig
+
+
+def check_peak(what, peak, device):
+    """Raise unless ``peak`` is under PEAK_SHARE_MAX of the card's memory;
+    returns the card's memory."""
+    import torch
+
+    total = torch.cuda.get_device_properties(device).total_memory
+    if peak >= PEAK_SHARE_MAX * total:
+        raise AssertionError(f"{what}: peak device memory {peak} B is not under {PEAK_SHARE_MAX} of the "
+                             f"card's {total} B")
+    return total
 
 
 def prove_launches(dp, n) -> dict:
@@ -412,10 +491,12 @@ def prove_launches(dp, n) -> dict:
     return {"crt_tc": 2 * dp.K + 1, "plane_dot_sm90": 2 * slices, "plane_epilogue_diag": 2}
 
 
-def run_fold(name, dp, scheme, reps, device, profile=False):
+def run_fold(name, dp, scheme, reps, device, profile=False, label=None, big_m=None,
+             expand_nvars=BIGM_EXPAND_NVARS, expect_big_m=False):
     """Phase 3 for one ring: the fold at WIT_LEN, X_LEN, as
-    benches/sweep_e2e.py sets it up. Returns a dict of results; raises on
-    any failed check."""
+    benches/sweep_e2e.py sets it up, on the path ``big_m`` asks for (None:
+    the port's rule), which must be the big-m path iff ``expect_big_m``.
+    Returns a dict of results; raises on any failed check."""
     import torch
 
     import latticefold_torch.nifs as nifs
@@ -430,6 +511,7 @@ def run_fold(name, dp, scheme, reps, device, profile=False):
     from latticefold_torch.transcript import Transcript
 
     ring = scheme.ring
+    label = label or name
     sponge_cls = type(Transcript(ring).sponge)
     # prove seconds depend on which sponge runs: hold the 64-bit fields to
     # the C++ one (q > 2^64 has only the Python sponge, in both packages)
@@ -443,27 +525,33 @@ def run_fold(name, dp, scheme, reps, device, profile=False):
     acc, _ = linearization.prove(cm_i, wit, Transcript(ring), ccs)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    log(f"[fold {name}] wit_len={WIT_LEN} m={ccs.m} n={scheme.n} kappa={scheme.kappa}: setup "
+    log(f"[fold {label}] wit_len={WIT_LEN} m={ccs.m} n={scheme.n} kappa={scheme.kappa} {dp}: setup "
         f"{setup_s:.2f} s ({sponge_cls.__name__})")
 
     def prove():
-        return nifs.prove(acc, wit, cm_i, wit, Transcript(ring), ccs, scheme, dp)
+        return nifs.prove(acc, wit, cm_i, wit, Transcript(ring), ccs, scheme, dp, big_m=big_m,
+                          expand_nvars=expand_nvars)
 
     # the main path, counted: every kernel of the path must launch in it,
     # as often as the code says (prove_launches), and no other
     torch.cuda.reset_peak_memory_stats(device)
+    live = torch.cuda.memory_allocated(device)
     cuda.reset_launches()
     sponge = {"s": 0.0}
     t0 = time.perf_counter()
-    with sponge_timer(sponge_cls, sponge):
+    with sponge_timer(sponge_cls, sponge), bigm_calls() as calls:
         folded, w0, proof = prove()
         torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = {k: v for k, v in cuda.LAUNCHES.items() if v}  # and no other kernel
-    log(f"[fold {name}] first prove {first_s:.3f} s (host sponge {sponge['s']:.3f} s); launches {launches}")
+    path = "big-m" if calls[0] else "standard"
+    log(f"[fold {label}] first prove {first_s:.3f} s on the {path} path (host sponge {sponge['s']:.3f} s); "
+        f"launches {launches}")
     expected = prove_launches(dp, scheme.n)
     if launches != expected:
-        raise AssertionError(f"launches per prove {launches}, expected {expected}")
+        raise AssertionError(f"[{label}] launches per prove {launches}, expected {expected}")
+    if bool(calls[0]) != expect_big_m:
+        raise AssertionError(f"[{label}] the prove took the {path} path")
 
     t0 = time.perf_counter()
     folded_v = nifs.verify(acc, cm_i, proof, Transcript(ring), ccs, dp)
@@ -471,8 +559,8 @@ def run_fold(name, dp, scheme, reps, device, profile=False):
     if (folded_v.r, folded_v.v, folded_v.u, folded_v.cm) != (folded.r, folded.v, folded.u, folded.cm):
         raise AssertionError("verifier's folded accumulator differs from the prover's")
     if w0.commit(scheme) != folded.cm:
-        raise AssertionError("the folded witness does not open the folded commitment")
-    log(f"[fold {name}] verify {verify_s:.3f} s: verifier accepts; w0 opens the folded commitment")
+        raise AssertionError(f"[{label}] the folded witness does not open the folded commitment")
+    log(f"[fold {label}] verify {verify_s:.3f} s: verifier accepts; w0 opens the folded commitment")
 
     prove_s = []
     for _ in range(reps):
@@ -483,7 +571,10 @@ def run_fold(name, dp, scheme, reps, device, profile=False):
         if again != proof:
             raise AssertionError("a timed prove gave another proof")
     peak = torch.cuda.max_memory_allocated(device)
-    log(f"[fold {name}] timed prove s {prove_s}; peak device memory {peak} B")
+    reserved = torch.cuda.max_memory_reserved(device)
+    check_peak(f"fold {label}", peak, device)
+    log(f"[fold {label}] timed prove s {prove_s}; peak device memory {peak} B ({reserved} B reserved; "
+        f"{live} B held at the counted prove's start)")
 
     # one decomposition batch against the commit kernel: the digit witnesses
     # of the prove's right side, committed by commit_batch, must give the
@@ -494,10 +585,11 @@ def run_fold(name, dp, scheme, reps, device, profile=False):
     if [Commitment(ring, list(cms[:, i])) for i in range(dp.K - 1)] != proof.decomposition_proof_r.y_s[1:]:
         raise AssertionError("the fold's batch commitments differ from the commit kernel's")
     del wit_s, batch
-    log(f"[fold {name}] the proof's {dp.K - 1} batch commitments equal the commit kernel's")
-    out = dict(m=ccs.m, n=scheme.n, kappa=scheme.kappa, setup_s=setup_s, first_prove_s=first_s,
-               sponge_s=sponge["s"], prove_s=prove_s, verify_s=verify_s, peak_bytes=peak,
-               launches=launches, proof_bytes=serialization.serialize_proof(ring, proof))
+    log(f"[fold {label}] the proof's {dp.K - 1} batch commitments equal the commit kernel's")
+    out = dict(preset=str(dp), m=ccs.m, n=scheme.n, kappa=scheme.kappa, path=path, setup_s=setup_s,
+               first_prove_s=first_s, sponge_s=sponge["s"], prove_s=prove_s, verify_s=verify_s,
+               peak_bytes=peak, reserved_bytes=reserved, live_bytes=live, launches=launches,
+               proof_bytes=serialization.serialize_proof(ring, proof))
     if profile:
         out["profile"] = profile_prove(name, prove)
     return out
@@ -822,12 +914,16 @@ def check_plane_commit(device):
     record["two-slice b16"] = rec
     entries += ent
     torch.cuda.empty_cache()
-    for name, (preset, kappa, _) in PATHS.items():
+    # each fold's commit shape; its kernels JSON entries come with the
+    # fold's launches (kernel_entries). The big-m fold's is five slices
+    # (five kernel A launches, one kernel B launch with nsl 5)
+    folds = [(f"{name} fold", name, preset, kappa, WIT_LEN) for name, (preset, kappa, _) in PATHS.items()]
+    folds += [(f"{MODERATE_B[0]} {MODERATE_B[1]} fold", *MODERATE_B, WIT_LEN),
+              (f"{BIGM[0]} big-m fold", BIGM[0], PATHS[BIGM[0]][0], BIGM[2], BIGM[1])]
+    for label, name, preset, kappa, wit_len in folds:
         dp = getattr(params, preset)
-        # its kernels JSON entries come with the fold's launches (kernel_entries)
-        rec, _ = plane_commit_shape(f"{name} fold", name, kappa, WIT_LEN * dp.L, dp.K - 1, 7, 3, device,
-                                    flush, False)
-        record[f"{name} fold"] = rec
+        rec, _ = plane_commit_shape(label, name, kappa, wit_len * dp.L, dp.K - 1, 7, 3, device, flush, False)
+        record[label] = rec
         torch.cuda.empty_cache()
     record["babybear contiguous Nb=7"] = check_odd_batch(device)
     return record, entries
@@ -1186,18 +1282,66 @@ PROBE_REPLACES = {
 }
 
 
-def kernel_entries(name, dp, kappa, kres, launches, route_rec):
-    """The ``kernels`` JSON entries of one ring: each kernel at the shape the
-    prove launches it at (the CRTs at crt N = n; the Hopper dot, the
-    epilogue and the commit kernel at Nb = K - 1), with the other shapes
-    beside it. The SIMT CRT and the commit kernel are off the main path."""
-    n = WIT_LEN * dp.L
-    entries = route_entries(f"{name} fold", route_rec, launches)
+def peak_sweep(device, wit_lens=(8192, 16384, 32768)):
+    """The peak device memory of each fold path against m: Goldilocks at
+    DP_GOLDILOCKS (kappa 9, the e2e chain's instance) at each wit_len,
+    forced onto the standard path and, at the largest, onto the big-m path
+    too; one prove each. A prove that runs out of device memory is
+    recorded as such. The numbers behind the port's path rule
+    (``nifs.STANDARD_PEAK_BYTES_PER_CONSTRAINT``, ``STANDARD_PEAK_SHARE``).
+    Not run by ``main``: call it alone. Writes
+    chiprun_out/chip_smoke_peaks.json."""
+    import torch
+
+    from latticefold_torch import cuda, e2e, nifs
+    from latticefold_torch.transcript import Transcript
+
+    out = []
+    for wit_len in wit_lens:
+        s = e2e.setup_chain("goldilocks", wit_len, X_LEN, 9, device)
+        for big_m in (False, True) if wit_len == wit_lens[-1] else (False,):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+            live = torch.cuda.memory_allocated(device)
+            cuda.reset_launches()
+            rec = dict(wit_len=wit_len, m=s.ccs.m, big_m=big_m, live_bytes=live)
+            t0 = time.perf_counter()
+            try:
+                nifs.prove(s.acc0, s.wit, s.cm_i, s.wit, Transcript(s.ring), s.ccs, s.scheme, s.dp, big_m=big_m)
+                torch.cuda.synchronize()
+                rec.update(prove_s=time.perf_counter() - t0, peak_bytes=torch.cuda.max_memory_allocated(device),
+                           reserved_bytes=torch.cuda.max_memory_reserved(device),
+                           launches={k: v for k, v in cuda.LAUNCHES.items() if v})
+                rec["peak_per_constraint"] = rec["peak_bytes"] / s.ccs.m
+            except torch.OutOfMemoryError as e:
+                rec["out_of_memory"] = str(e).splitlines()[0]
+            log(f"[peaks] {rec}")
+            out.append(rec)
+        del s
+    torch.cuda.empty_cache()
+    with open(os.path.join(OUT_DIR, "chip_smoke_peaks.json"), "w") as fh:
+        json.dump(dict(card=nvidia_smi_line(), total_memory=torch.cuda.get_device_properties(device).total_memory,
+                       runs=out), fh, indent=1)
+    return out
+
+
+def kernel_entries(label, name, n, Nb, kres, launches, route_rec):
+    """The ``kernels`` JSON entries of one fold path (``label``, on ring
+    ``name`` at Ajtai width ``n``): each kernel at the shape the prove
+    launches it at (the CRTs at crt N = n; the Hopper dot, the epilogue and
+    the commit kernel at Nb = K - 1, the commit kernel where phase 2
+    measured that shape), with the other shapes beside it and ``launches``
+    from the path's counted prove. The SIMT CRT and the commit kernel are
+    off the main path."""
+    kappa = route_rec["kappa"]
+    entries = route_entries(label, route_rec, launches)
     for key, main in (("crt_tc", f"crt N={n}"), ("crt", f"crt N={n}"),
-                      ("commit", f"kappa={kappa} n={n} Nb={dp.K - 1}")):
+                      ("commit", f"kappa={kappa} n={n} Nb={Nb}")):
+        if (key, main) not in kres:
+            continue
         r = kres[(key, main)]
         info = dict(KERNEL_INFO[key])
-        info["name"] = f"{info['name']}[{name}]"
+        info["name"] = f"{info['name']}[{label}]"
         extra = {}
         if key == "crt_tc":
             extra = dict(simt_ms=r["simt_ms"], lane_floor_ms=r["lane_floor"]["bound_ms"],
@@ -1210,6 +1354,107 @@ def kernel_entries(name, dp, kappa, kres, launches, route_rec):
                           for (k, s), rec in kres.items() if k == key and s != main},
         ))
     return entries
+
+
+def run_moderate_b_phase(device, kres, plane_rec):
+    """Phase 3c: the fold phase's instance at MODERATE_B's preset (one
+    counted prove: the tensor-core CRT 2K + 1, the Hopper dot 2 and the
+    diagonal epilogue 2 launches, nothing else; verified, w0 opens), then
+    the small fixture at the same preset folded on the card (verified, w0
+    opens) and equal as bytes to the CPU's fold. ``kres``: phase 2's
+    records of the ring (the CRT shapes are the fold phase's). Returns
+    (record, kernels JSON entries)."""
+    import torch
+
+    from latticefold_torch import params
+    from latticefold_torch.commitment import AjtaiScheme
+    from latticefold_torch.rings.construct import get_ring
+
+    name, preset, kappa = MODERATE_B
+    dp = getattr(params, preset)
+    label = f"{name} {preset}"
+    scheme = AjtaiScheme(get_ring(name), kappa, WIT_LEN * dp.L, seed=7, device=device)
+    fold = run_fold(name, dp, scheme, 0, device, label=label)
+    fold.pop("proof_bytes")
+    entries = kernel_entries(label, name, scheme.n, dp.K - 1, kres, fold["launches"], plane_rec[f"{label} fold"])
+    del scheme
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    card = small_fold(name, device, 1, preset, verify=True)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if card != small_fold(name, torch.device("cpu"), 1, preset):
+        raise AssertionError(f"small fold [{label}]: the card's proof or accumulator bytes differ from the CPU's")
+    cpu_s = time.perf_counter() - t0
+    log(f"[fold {label}] small fixture on the card in {card_s:.1f} s: verified, w0 opens; its proof and "
+        f"accumulator bytes equal the CPU's ({cpu_s:.1f} s there; {len(card[0][0])} B of proof)")
+    return dict(fold=fold, small=dict(card_s=card_s, cpu_s=cpu_s, proof_bytes=len(card[0][0]))), entries
+
+
+def run_bigm_phase(device, std_fold, std_proof, kres_std, plane_rec):
+    """Phase 3d: (1) the fold phase's Goldilocks instance forced onto the
+    big-m path (``big_m=True``, BIGM_EXPAND_NVARS): its proof bytes must be
+    the fold phase's counted prove's; (2) BIGM's instance through
+    ``latticefold_torch.e2e`` with no path asked for: the rule must choose
+    the big-m path; one counted prove (the tensor-core CRT 2K + 1, the
+    Hopper dot once per 2^15-term slice of each batch commit, the diagonal
+    epilogue 2, nothing else), verified, w0 opens, peak under
+    PEAK_SHARE_MAX of the card. Phase 2 holds the kernels at (2)'s shapes
+    first. Returns (record, kernels JSON entries)."""
+    import torch
+
+    from latticefold_torch import e2e, nifs, params
+    from latticefold_torch.commitment import AjtaiScheme
+    from latticefold_torch.rings.construct import get_ring
+    from latticefold_torch.transcript import Transcript
+
+    name, wit_len, kappa = BIGM
+    dp = getattr(params, PATHS[name][0])
+    label = f"{name} big-m m=2^15"
+    scheme = AjtaiScheme(get_ring(name), kappa, WIT_LEN * dp.L, seed=7, device=device)
+    forced = run_fold(name, dp, scheme, 0, device, label=label, big_m=True, expect_big_m=True)
+    if forced.pop("proof_bytes") != std_proof:
+        raise AssertionError(f"[{label}] the proof differs from the standard path's")
+    log(f"[{label}] the proof bytes equal the standard path's; peak device memory {forced['peak_bytes']} B "
+        f"against the standard path's {std_fold['peak_bytes']} B")
+    entries = kernel_entries(label, name, scheme.n, dp.K - 1, kres_std, forced["launches"],
+                             plane_rec[f"{name} fold"])
+    del scheme
+    torch.cuda.empty_cache()
+
+    label = f"{name} big-m m=2^18"
+    s = e2e.setup_chain(name, wit_len, X_LEN, kappa, device)
+    ring = s.ring
+    log(f"[{label}] wit_len={wit_len} m={s.ccs.m} n={s.scheme.n} kappa={kappa}: setup {s.setup_s:.2f} s")
+    kres = check_kernels(label, dp, s.scheme, device, wit_len)
+    with bigm_calls() as calls:
+        acc, w_acc, step = e2e.prove_step(s, s.acc0, s.wit)
+    expected = prove_launches(dp, s.scheme.n)
+    log(f"[{label}] prove {step.prove_s:.3f} s, peak device memory {step.peak_bytes} B ({step.live_bytes} B "
+        f"held at its start), launches {step.launches}, path {'big-m' if calls[0] else 'standard'}")
+    if not (step.big_m and calls[0] == 1):
+        raise AssertionError(f"[{label}] the rule did not choose the big-m path")
+    if step.launches != expected:
+        raise AssertionError(f"[{label}] launches {step.launches}, expected {expected}")
+    total = check_peak(label, step.peak_bytes, device)
+    t0 = time.perf_counter()
+    folded_v = nifs.verify(s.acc0, s.cm_i, step.proof, Transcript(ring), s.ccs, dp)
+    verify_s = time.perf_counter() - t0
+    if (folded_v.r, folded_v.v, folded_v.u, folded_v.cm) != (acc.r, acc.v, acc.u, acc.cm):
+        raise AssertionError(f"[{label}] the verifier's folded accumulator differs from the prover's")
+    if w_acc.commit(s.scheme) != acc.cm:
+        raise AssertionError(f"[{label}] the folded witness does not open the folded commitment")
+    log(f"[{label}] verify {verify_s:.3f} s: verifier accepts; w0 opens the folded commitment; peak "
+        f"{step.peak_bytes / total:.3f} of the card's {total} B")
+    big = dict(wit_len=wit_len, m=s.ccs.m, n=s.scheme.n, kappa=kappa, setup_s=s.setup_s, prove_s=step.prove_s,
+               verify_s=verify_s, peak_bytes=step.peak_bytes, live_bytes=step.live_bytes,
+               reserved_bytes=torch.cuda.max_memory_reserved(device), total_memory=total,
+               launches=step.launches)
+    entries += kernel_entries(label, name, s.scheme.n, dp.K - 1, kres, step.launches,
+                              plane_rec[f"{name} big-m fold"])
+    del s, acc, w_acc, step, folded_v
+    torch.cuda.empty_cache()
+    return dict(forced_m15=forced, m18=big, kernels={f"{k}:{sh}": v for (k, sh), v in kres.items()}), entries
 
 
 def main() -> int:
@@ -1250,12 +1495,13 @@ def main() -> int:
     entries += probe_entries
     # phases 2 and 3, one ring after the other
     chain_fold_proof = None  # the fold phase's proof on the chain's ring
+    kres_by_ring, folds = {}, {}
     for name, (preset, kappa, reps) in PATHS.items():
         dp = getattr(params, preset)
         ring = get_ring(name)
         scheme = AjtaiScheme(ring, kappa, WIT_LEN * dp.L, seed=7, device=device)
-        kres = check_kernels(name, dp, scheme, device)
-        fold = run_fold(name, dp, scheme, reps, device, profile=name == PROFILED)
+        kres = kres_by_ring[name] = check_kernels(name, dp, scheme, device)
+        fold = folds[name] = run_fold(name, dp, scheme, reps, device, profile=name == PROFILED)
         steps = SMALL_CHAIN_STEPS if name == CHAIN[0] else 1
         card = small_fold(name, device, steps)
         if card != small_fold(name, torch.device("cpu"), steps):
@@ -1266,13 +1512,21 @@ def main() -> int:
         if name == CHAIN[0]:
             chain_fold_proof = proof_bytes
         record["rings"][name] = dict(kernels={f"{k}:{s}": v for (k, s), v in kres.items()}, fold=fold)
-        entries += kernel_entries(name, dp, kappa, kres, fold["launches"], record["plane_commit"][f"{name} fold"])
+        entries += kernel_entries(name, name, scheme.n, dp.K - 1, kres, fold["launches"],
+                                  record["plane_commit"][f"{name} fold"])
         del scheme
         torch.cuda.empty_cache()
 
     # phase 3b: the IVC chain
     record["chain"] = run_chain_phase(device, chain_fold_proof)
     record["chain"]["card"] = smi
+    # phase 3c: moderate b
+    record["moderate_b"], ent = run_moderate_b_phase(device, kres_by_ring[MODERATE_B[0]], record["plane_commit"])
+    entries += ent
+    # phase 3d: big m
+    record["big_m"], ent = run_bigm_phase(device, folds[BIGM[0]], chain_fold_proof, kres_by_ring[BIGM[0]],
+                                          record["plane_commit"])
+    entries += ent
 
     # phase 4: the record
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:

@@ -13,7 +13,10 @@ commitment.
                                   [--device cuda]
 
 It runs on the card unless ``--device cpu`` is given; without a card it
-raises. The JAX example's ``--fused`` (the single-dispatch device prover)
+raises. Each fold takes the path ``nifs.use_big_m`` chooses from the ring,
+m and the device's memory (the big-m path from m 2^18 on for Goldilocks
+on an 80 GB card, e.g. ``--wit-len 32768``), and each step's line names
+it. The JAX example's ``--fused`` (the single-dispatch device prover)
 has no counterpart here. ``run_chain`` does the work and returns each
 step's proof, prove seconds, kernel launches and peak device memory, for
 callers that check a chain rather than print one.
@@ -67,6 +70,7 @@ class Step:
     launches: dict  # kernel -> launches in this step's prove (none on the CPU)
     peak_bytes: Optional[int]  # peak device memory of this step (None on the CPU)
     live_bytes: Optional[int]  # device memory held when the step began (None on the CPU)
+    big_m: bool  # the path nifs.prove chose (nifs.use_big_m)
 
 
 @dataclass
@@ -119,7 +123,8 @@ def prove_step(s: ChainSetup, acc: LCCCS, w_acc: Witness):
     prove_s = time.perf_counter() - t0
     launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
-    return acc, w_acc, Step(proof, prove_s, launches, peak, live)
+    big_m = nifs.use_big_m(s.ring.name, s.ccs.m, dev)
+    return acc, w_acc, Step(proof, prove_s, launches, peak, live, big_m)
 
 
 def fold_steps(s: ChainSetup, steps: int,
@@ -176,7 +181,8 @@ def main(argv=None) -> int:
     print(f"Setup in {s.setup_s:.3f}s (includes first kernel builds)")
 
     def report(i, acc, w_acc, step):
-        print(f"step {i - 1}: proof generated in {step.prove_s:.3f}s")
+        path = "big-m" if step.big_m else "standard"
+        print(f"step {i - 1}: proof generated in {step.prove_s:.3f}s ({path} path)")
 
     res = fold_steps(s, args.steps, report)
     acc, w_acc = res.acc, res.w_acc

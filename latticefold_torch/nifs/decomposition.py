@@ -12,7 +12,7 @@ y_0 = cm - b * sum_{i>=1} b^{i-1} y_i.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List
+from typing import List, Optional
 
 import torch
 
@@ -95,26 +95,58 @@ def decompose_big_vec_into_k_vec_and_compose_back(
     return out
 
 
+@dataclass
+class Arena:
+    """The big-m path's shared tables: the 2K digit witnesses' rows, filled
+    by the two decompositions (the left side's K in slots 0..K-1, the
+    right side's in K..2K-1) and read by the folding prover in place, so
+    that no [2K, ...] stack is made beside the witnesses' own tensors.
+
+    fhat: [2K, tau, m, ncomp, nl] subfield-compact f-hat rows (None once the
+    sumcheck has freed them); f: [2K, NL, ncomp, e, nl] (None once the
+    rho-fold has read them)."""
+
+    fhat: Optional[torch.Tensor]
+    f: Optional[torch.Tensor]
+
+    @classmethod
+    def allocate(cls, ring: Ring, dp: DecompositionParams, m: int, NL: int, device) -> "Arena":
+        return cls(
+            fhat=torch.empty((2 * dp.K, ring.tau, m, ring.ncomp, ring.nl), dtype=torch.int64, device=device),
+            f=torch.empty((2 * dp.K, NL, ring.ncomp, ring.e, ring.nl), dtype=torch.int64, device=device),
+        )
+
+
 def decompose_witness(
-    ring: Ring, dp: DecompositionParams, wit: Witness, n_pad: int
+    ring: Ring, dp: DecompositionParams, wit: Witness, n_pad: int,
+    arena: Optional[Arena] = None, slot0: int = 0,
 ) -> List[Witness]:
-    """Balanced base-b digits of f_coeff, then Witness.from_f_coeff per digit."""
+    """Balanced base-b digits of f_coeff, then Witness.from_f_coeff per digit.
+
+    With ``arena``: each digit witness's f_hat and f are copied into the
+    arena's rows slot0 + k as it is made, and the witness's own tensors
+    (f_hat, f, f_coeff) are dropped; consumers read the arena's rows."""
     digs = mo.signed_digits(ring.fq, wit.f_coeff, dp.b, dp.K)  # [NL, d, K]
-    return [
-        Witness.from_f_coeff(ring, dp, mo.digits_to_field(ring.fq, digs[..., k]), n_pad)
-        for k in range(dp.K)
-    ]
+    out = []
+    for k in range(dp.K):
+        w = Witness.from_f_coeff(ring, dp, mo.digits_to_field(ring.fq, digs[..., k]), n_pad)
+        if arena is not None:
+            arena.fhat[slot0 + k].copy_(w.f_hat)
+            arena.f[slot0 + k].copy_(w.f)
+            w.f_hat = w.f = w.f_coeff = None
+        out.append(w)
+    return out
 
 
-def digit_batch(ring: Ring, wits: List[Witness]):
-    """The digit witnesses' f [n, ncomp, e, nl] as one component-major
-    batch [ncomp, n, e, len(wits), nl] in ``plane_commit.empty_batch``'s
-    layout, the one the byte-plane commit reads on the card: one copy, as a
-    stack on the batch dimension is."""
-    f0 = wits[0].f
-    batch = plane_commit.empty_batch(ring, f0.shape[0], len(wits), f0.device)
-    for i, w in enumerate(wits):
-        batch[:, :, :, i] = w.f.permute(1, 0, 2, 3)
+def digit_batch(ring: Ring, fs):
+    """The digit witnesses' f rows (a sequence of [n, ncomp, e, nl] tensors,
+    or a [Nb, n, ...] tensor such as the arena's rows) as one
+    component-major batch [ncomp, n, e, Nb, nl] in
+    ``plane_commit.empty_batch``'s layout, the one the byte-plane commit
+    reads on the card: one copy, as a stack on the batch dimension is."""
+    batch = plane_commit.empty_batch(ring, fs[0].shape[0], len(fs), fs[0].device)
+    for i, f in enumerate(fs):
+        batch[:, :, :, i] = f.permute(1, 0, 2, 3)
     return batch
 
 
@@ -130,17 +162,27 @@ def prove(
     ccs: CCS,
     scheme: AjtaiScheme,
     dp: DecompositionParams,
+    arena: Optional[Arena] = None,
+    slot0: int = 0,
 ):
     """Returns (z_s, lcccs_s, wit_s, proof).
 
     z_s: the K z-vectors (x_k || w_ccs_k), retained for the folding prover's
     streaming Mz evaluations in place of materialized Mz MLEs.
+    ``arena`` / ``slot0``: the big-m path's shared tables (see ``Arena``);
+    the digit witnesses' rows go to slots slot0..slot0+K-1.
     """
     ring = ccs.ring
     ccs.sanity_check(dp.L)
     dev = wit.f.device
 
-    wit_s = decompose_witness(ring, dp, wit, ccs.m)
+    wit_s = decompose_witness(ring, dp, wit, ccs.m, arena=arena, slot0=slot0)
+    if arena is not None:
+        f_s = arena.f[slot0 : slot0 + dp.K]
+        fhat_s = arena.fhat[slot0 : slot0 + dp.K]
+    else:
+        f_s = [w.f for w in wit_s]
+        fhat_s = [w.f_hat for w in wit_s]
     x_s = decompose_big_vec_into_k_vec_and_compose_back(
         ring, dp, list(cm_i.x_w) + [cm_i.h]
     )
@@ -149,7 +191,7 @@ def prove(
     # byte-plane route (kernels A and B); y_0 derived homomorphically
     commitments_k1 = []
     if dp.K > 1:
-        batch = digit_batch(ring, wit_s[1:])
+        batch = digit_batch(ring, f_s[1:])
         cms_host = rops.to_host(ring, scheme.commit_batch_fused(batch))
         del batch
         commitments_k1 = [
@@ -163,9 +205,10 @@ def prove(
 
     rs = mlemod.point_to_device(ring, cm_i.r, dev)
     v_s = [
-        list(rops.to_host(ring, mlemod.evaluate_subfield(ring, w.f_hat, rs)))
-        for w in wit_s
+        list(rops.to_host(ring, mlemod.evaluate_subfield(ring, fhat, rs)))
+        for fhat in fhat_s
     ]
+    del f_s, fhat_s
 
     # u_k[j] = mle[M_j z_k](r) = <M_j z_k, eq_r> = <z_k, M_j^T eq_r>: the t
     # transposed-SpMV vectors are shared across all K instances (exact mod-q

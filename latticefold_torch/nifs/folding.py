@@ -104,18 +104,48 @@ def prepare_folding_mles_streaming(
     ring: Ring, Khalf: int, f_hat_all, z_all, ccs, eq1, eq2, beta_eq, alphas, zetas
 ):
     """Stacked MLEs [5 + 2K*tau, m, ncomp, e, nl]:
-    [eq(r_first), combined_1, eq(r_second), combined_2, eq(beta), f_hats...].
-    The zeta-Horner terms M_j z_i are produced one j at a time by batched
-    SpMV and consumed immediately (no [2K, t, m] Mz tables)."""
-    fh_h = _fhat_horner(ring, f_hat_all, alphas)
-    mz_h = None
-    zetas_dev = zetas[:, None, None]  # broadcast over (m, ncomp)
-    for j in range(len(ccs.M) - 1, -1, -1):
-        y_j = ccs.M[j].mat_vec_batched(z_all)  # [2K, m, ...]
-        cur = y_j if mz_h is None else rops.ring_add(ring, mz_h, y_j)
-        mz_h = rops.ext_mul(ring, cur, zetas_dev)
-    both = rops.ring_add(ring, fh_h, mz_h)
-    return _folding_combine(ring, Khalf, both, f_hat_all, eq1, eq2, beta_eq)
+    [eq(r_first), combined_1, eq(r_second), combined_2, eq(beta), f_hats...]:
+    the five rows of ``prepare_folding_parts_grouped`` with every instance
+    in one group, then the f-hat rows in full K form."""
+    parts = prepare_folding_parts_grouped(
+        ring, Khalf, f_hat_all, z_all, ccs, eq1, eq2, beta_eq, alphas, zetas, group=f_hat_all.shape[0]
+    )
+    fh_full = mlemod.expand_subfield(ring, f_hat_all)  # [2K, tau, m, c, e, nl]
+    return torch.cat([parts, fh_full.reshape((-1,) + tuple(fh_full.shape[2:]))], dim=0)
+
+
+def prepare_folding_parts_grouped(
+    ring: Ring, Khalf: int, f_hat_all, z_all, ccs, eq1, eq2, beta_eq,
+    alphas, zetas, group: int = 4,
+):
+    """The five expanded rows [5, m, ncomp, e, nl] = [eq(r_first),
+    combined_1, eq(r_second), combined_2, eq(beta)]; on the big-m path the
+    f-hat rows stay subfield-compact for ``sumcheck.prove_host_bigm``. The
+    per-instance alpha / zeta Horner tables (the zeta terms M_j z_i made one
+    j at a time by batched SpMV, no [2K, t, m] Mz tables) are built
+    ``group`` instances at a time and summed straight into the two combined
+    rows, so O(group m) ring elements are live instead of O(2K m). Modular
+    sums are exact: the rows do not depend on ``group``."""
+    twoK = f_hat_all.shape[0]
+    combined = [None, None]
+    for g0 in range(0, twoK, group):
+        g1 = min(twoK, g0 + group)
+        fh_h = _fhat_horner(ring, f_hat_all[g0:g1], alphas[g0:g1])
+        mz_h = None
+        zetas_dev = zetas[g0:g1, None, None]  # broadcast over (m, ncomp)
+        for j in range(len(ccs.M) - 1, -1, -1):
+            y_j = ccs.M[j].mat_vec_batched(z_all[g0:g1])  # [G, m, ...]
+            cur = y_j if mz_h is None else rops.ring_add(ring, mz_h, y_j)
+            mz_h = rops.ext_mul(ring, cur, zetas_dev)
+        both = rops.ring_add(ring, fh_h, mz_h)  # [G, m, ...]
+        del fh_h, mz_h
+        split = min(max(Khalf - g0, 0), g1 - g0)  # the group's instances of the first half
+        for half, lo, hi in ((0, 0, split), (1, split, g1 - g0)):
+            if hi <= lo:
+                continue
+            part = rops.ring_sum(ring, both[lo:hi], 0)
+            combined[half] = part if combined[half] is None else rops.ring_add(ring, combined[half], part)
+    return torch.stack([eq1, combined[0], eq2, combined[1], beta_eq])
 
 
 def _fhat_horner(ring: Ring, f_hat_all, alphas):
@@ -134,15 +164,6 @@ def _fhat_horner(ring: Ring, f_hat_all, alphas):
             mle[..., 0, :] = mo.add(m, mle[..., 0, :], cur_sub)
             mle = rops.ext_mul(ring, mle, ch)
     return mle
-
-
-def _folding_combine(ring: Ring, Khalf: int, both, f_hat_all, eq1, eq2, beta_eq):
-    combined_1 = rops.ring_sum(ring, both[:Khalf], 0)
-    combined_2 = rops.ring_sum(ring, both[Khalf:], 0)
-    parts = torch.stack([eq1, combined_1, eq2, combined_2, beta_eq])
-    fh_full = mlemod.expand_subfield(ring, f_hat_all)  # [2K, tau, m, c, e, nl]
-    fh = fh_full.reshape((-1,) + tuple(fh_full.shape[2:]))  # [2K*tau, m, ...]
-    return torch.cat([parts, fh], dim=0)
 
 
 def _folding_comb(ring: Ring, two_k: int, tau: int, b_small: int, device):
@@ -195,6 +216,19 @@ def fold_witnesses(ring: Ring, f_all, rhos):
     """f_0 = sum_i rho_i * f_i; f_all [2K, NL, ...], rhos [2K, ncomp, e, nl]."""
     prod = rops.ring_mul(ring, f_all, rhos[:, None])
     return rops.ring_sum(ring, prod, 0)
+
+
+def fold_witnesses_stream(ring: Ring, f_all, rhos):
+    """``fold_witnesses`` one row of ``f_all`` at a time (the big-m path's
+    form): the transient is one [NL, ...] product beside the accumulator
+    instead of the [2K, NL, ...] product table, for 2K times the launches.
+    Modular sums are exact, so the result is the same."""
+    acc = None
+    for f, rho in zip(f_all, rhos):
+        term = rops.ring_mul(ring, f, rho)
+        acc = term if acc is None else rops.ring_add(ring, acc, term)
+        del term
+    return acc
 
 
 # ---------------------------------------------------------------------------
@@ -269,10 +303,19 @@ def prove(
     ccs: CCS,
     dp: DecompositionParams,
     z_s: List,
+    arena=None,
+    expand_nvars: int = 13,
 ):
     """``z_s``: the 2K z-vectors from the two decomposition calls; Mz values
     are streamed from them (one SpMV batch per CCS matrix) rather than passed
     as materialized MLE tables.
+
+    ``arena`` (a ``decomposition.Arena``) selects the big-m path: the
+    witnesses' f_hat and f rows come from it, the f-hat rows stay
+    subfield-compact through the first ``log_m - expand_nvars`` sumcheck
+    rounds (``sumcheck.prove_host_bigm``), and the arena's f-hat table is
+    freed in the sumcheck. Without it (the standard path) they are stacked
+    from ``w_s`` and expanded. Both give the same proof.
 
     ``w_s`` is consumed: each witness's ``f_coeff`` table is dead from here
     on and is freed on entry (``f`` and ``f_hat`` stay valid)."""
@@ -281,14 +324,17 @@ def prove(
     if len(cm_i_s) != 2 * dp.K:
         raise FoldingError("expected 2K instances")
     log_m = ccs.s
-    dev = w_s[0].f.device
+    dev = z_s[0].device
 
     for w in w_s:
         w.f_coeff = None
 
     alpha_s, beta_s, zeta_s, mu_s = squeeze_alpha_beta_zeta_mu(ring, transcript, dp, log_m)
 
-    f_hat_all = torch.stack([w.f_hat for w in w_s])  # [2K, tau, m, ...]
+    if arena is not None:
+        f_hat_all = arena.fhat  # [2K, tau, m, ...]
+    else:
+        f_hat_all = torch.stack([w.f_hat for w in w_s])
     z_all = torch.stack(z_s)  # [2K, ncols, ...]
 
     r_first, r_second = cm_i_s[0].r, cm_i_s[dp.K].r
@@ -302,12 +348,26 @@ def prove(
     comb = _folding_comb(ring, 2 * dp.K, ring.tau, dp.b, dev)
     degree = 2 * dp.b
 
-    mles = prepare_folding_mles_streaming(
-        ring, dp.K, f_hat_all, z_all, ccs, eq1, eq2, beta_eq, alphas, zetas
-    )
-    del f_hat_all, eq1, eq2, beta_eq
-    proof_sc, r_0, final_vals = sc.prove(ring, transcript, mles, log_m, degree, comb, mus)
-    del mles
+    if arena is not None:
+        full5 = [prepare_folding_parts_grouped(
+            ring, dp.K, f_hat_all, z_all, ccs, eq1, eq2, beta_eq, alphas, zetas
+        )]
+        # the five rows and the compact table go to the sumcheck in boxes,
+        # with no other reference left: it drops the rows as it folds them
+        # and frees the table after the round-J expansion
+        fhat_box = [f_hat_all]
+        f_hat_all = arena.fhat = None
+        del eq1, eq2, beta_eq
+        proof_sc, r_0, final_vals = sc.prove_host_bigm(
+            ring, transcript, full5.pop(), fhat_box, log_m, degree, comb, mus, expand_nvars=expand_nvars
+        )
+    else:
+        mles = prepare_folding_mles_streaming(
+            ring, dp.K, f_hat_all, z_all, ccs, eq1, eq2, beta_eq, alphas, zetas
+        )
+        del f_hat_all, eq1, eq2, beta_eq
+        proof_sc, r_0, final_vals = sc.prove(ring, transcript, mles, log_m, degree, comb, mus)
+        del mles
 
     # thetas come free from the final folded tables (f_hat rows are mles[5:])
     fhat_finals = rops.to_host(ring, final_vals[5:])
@@ -328,9 +388,14 @@ def prove(
 
     rho_coeff_s, rho_ntt_s = get_rhos(ring, transcript, dp)
 
-    f_all = torch.stack([w.f for w in w_s])
-    f_0 = fold_witnesses(ring, f_all, rops.to_device(ring, rho_ntt_s, dev))
-    del f_all
+    rhos = rops.to_device(ring, rho_ntt_s, dev)
+    if arena is not None:
+        f_0 = fold_witnesses_stream(ring, arena.f, rhos)
+        arena.f = None
+    else:
+        f_all = torch.stack([w.f for w in w_s])
+        f_0 = fold_witnesses(ring, f_all, rhos)
+        del f_all
 
     v_0, cm_0, u_0, x_0 = compute_v0_u0_x0_cm0(
         ring, rho_coeff_s, rho_ntt_s, theta_s, cm_i_s, eta_s, ccs

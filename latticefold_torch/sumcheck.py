@@ -10,19 +10,22 @@ computed over the whole hypercube at once on the tables' device, brought to
 the host, absorbed, and the challenge folds the tables. The hypercube is
 processed in chunks of pairs so that the comb's temporaries stay bounded;
 modular sums are exact, so chunking leaves every round message unchanged.
-This is the JAX package's ``prove_host``, the only prover path here, and
-its ``CombFn`` is a plain callable ``comb(vals, consts)``: stacked MLE
-values [nm, M, ncomp, e, nl] plus runtime constants (challenge-derived
-tensors) -> combined polynomial values [M, ncomp, e, nl].
+This is the JAX package's ``prove_host``, and its ``CombFn`` is a plain
+callable ``comb(vals, consts)``: stacked MLE values [nm, M, ncomp, e, nl]
+plus runtime constants (challenge-derived tensors) -> combined polynomial
+values [M, ncomp, e, nl]. ``prove_host_bigm`` is the same prover with the
+folding sumcheck's f-hat rows kept subfield-compact through the first
+rounds (the big-m path; see the note above it).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, List, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import torch
 
+from . import modops as mo
 from .poly import mle as mlemod
 from .rings import ops as rops
 from .rings.construct import Ring
@@ -62,6 +65,23 @@ def _round_evs(ring: Ring, comb: Callable, degree: int, cur, consts):
     return torch.stack(total)
 
 
+def _rounds(ring: Ring, transcript: Transcript, cur, nrounds: int, degree: int,
+            comb: Callable, consts, challenges: list, round_evals: list):
+    """``nrounds`` rounds on the tables ``cur`` [nm, 2^nrounds, ...]: each
+    round's message is absorbed and its challenge folds the tables.
+    Appends to ``challenges`` / ``round_evals``; returns the folded tables
+    [nm, ncomp, e, nl]."""
+    for _ in range(nrounds):
+        evs_host = list(rops.to_host(ring, _round_evs(ring, comb, degree, cur, consts)))
+        transcript.absorb_slice(evs_host)
+        round_evals.append(evs_host)
+        c = transcript.get_challenge()
+        transcript.absorb_field_element(c)
+        challenges.append(c)
+        cur = mlemod.fold(ring, cur, rops.k_to_device(ring, c, cur.device))
+    return cur.squeeze(1)
+
+
 def prove(
     ring: Ring,
     transcript: Transcript,
@@ -77,18 +97,143 @@ def prove(
     assert mles.shape[1] == 1 << nvars
     transcript.absorb(ring.embed_int(nvars))
     transcript.absorb(ring.embed_int(degree))
-    challenges = []
-    round_evals = []
-    cur = mles
-    for _ in range(nvars):
-        evs_host = list(rops.to_host(ring, _round_evs(ring, comb, degree, cur, comb_consts)))
+    challenges, round_evals = [], []
+    final_vals = _rounds(ring, transcript, mles, nvars, degree, comb, comb_consts, challenges, round_evals)
+    return SumcheckProof(round_evals), challenges, final_vals
+
+
+# ---------------------------------------------------------------------------
+# big-m prover: compact f-hat rows through the first rounds
+# ---------------------------------------------------------------------------
+#
+# The folding sumcheck's 2K*tau f-hat rows start subfield-compact
+# ([m, ncomp, nl]: K-coordinate 0 only) and become K-valued only when folded
+# with the round challenges; expanded, they are e times larger (9 GB of
+# int64 lanes for Goldilocks at m = 2^18). This prover keeps the compact
+# rows through the first J = nvars - expand_nvars rounds with the fold
+# weights
+#
+#   W_j[y] = prod_{i<j} ((1 - c_i) if bit_i(y) == 0 else c_i),  y in [2^j],
+#
+# so that round j's folded value is fold_j[x] = sum_y W_j[y] orig[x 2^j + y]
+# (exact mod q), made a chunk at a time inside the round message. After J
+# rounds the rows are 2^J times shorter and are expanded in full; the
+# remaining rounds run as ``prove`` runs them. The round messages, and so
+# the proof, are the standard prover's.
+
+# ring elements of folded f-hat rows per chunk of a W-tensor round
+# (rows x chunk positions): 2^22 elements are 1.6 GB of int64 lanes at
+# Goldilocks (e 3, nl 2), so a chunk's fold and comb transients take a few
+# GB of an H100's 80 GB while the first round at m = 2^18 (90 rows) runs
+# in 6 chunks. The whole big-m Goldilocks prove at m = 2^18 peaked at 19.6 GB
+# (chip_smoke.peak_sweep; NVIDIA H100 80GB HBM3, 700 W). The TPU's 2^11
+# pairs were sized for a 16 GB chip.
+_BIGM_CHUNK_ELEMS = 1 << 22
+
+
+def _w_tensor(ring: Ring, chals, device) -> torch.Tensor:
+    """Challenges c_0..c_{j-1} -> the weights [2^j, e, nl] (Montgomery):
+    W[y] = prod_i w_i(bit_i(y)), w_i(0) = 1 - c_i, w_i(1) = c_i; W[()] = 1."""
+    K = ring.K
+    ws = [K.one()]
+    for c in chals:
+        wc0 = K.sub(K.one(), c)
+        ws = [K.mul(w, wc0) for w in ws] + [K.mul(w, c) for w in ws]
+    return torch.stack([rops.k_to_device(ring, w, device) for w in ws])
+
+
+def _fold_compact(ring: Ring, sub, W):
+    """sum_y W[y] * sub[:, :, y]: compact rows ``sub`` [nf, S, 2^j, ncomp, nl]
+    -> K-valued [nf, S, ncomp, e, nl], one term live at a time."""
+    acc = None
+    for y in range(sub.shape[2]):
+        term = mo.mont_mul(ring.fq, sub[:, :, y, :, None, :], W[y])
+        acc = term if acc is None else mo.add(ring.fq, acc, term)
+        del term
+    return acc
+
+
+def _bigm_round_evs(ring: Ring, comb: Callable, degree: int, cur5, fhat5, j: int, W, consts,
+                    chunk_pairs: Optional[int] = None):
+    """Round ``j``'s message [degree+1, ncomp, e, nl] from the expanded
+    tables ``cur5`` [n5, S, ...] (already folded j times) and the compact
+    f-hat rows ``fhat5`` [2K, tau, S 2^j, ncomp, nl], folded on the fly a
+    chunk of ``chunk_pairs`` pairs at a time (default: _BIGM_CHUNK_ELEMS
+    elements of folded rows). A pair x reads the contiguous original range
+    [x 2^(j+1), (x+1) 2^(j+1)), so every chunk is a ``narrow`` view."""
+    S = cur5.shape[1]
+    nf = fhat5.shape[0] * fhat5.shape[1]
+    rows = fhat5.view((nf,) + tuple(fhat5.shape[2:]))  # a view: never copy the table
+    if chunk_pairs is None:
+        chunk_pairs = max(1, _BIGM_CHUNK_ELEMS // (2 * nf))
+    total = None
+    for lo in range(0, S // 2, chunk_pairs):
+        cp = min(chunk_pairs, S // 2 - lo)
+        sub = rows.narrow(1, lo << (j + 1), cp << (j + 1))
+        folded = _fold_compact(ring, sub.view(nf, 2 * cp, 1 << j, ring.ncomp, ring.nl), W)
+        a = torch.cat([cur5.narrow(1, 2 * lo, 2 * cp), folded])
+        del folded
+        evs = _round_evs(ring, comb, degree, a, consts)
+        del a
+        total = evs if total is None else rops.ring_add(ring, total, evs)
+    return total
+
+
+def _bigm_expand(ring: Ring, fhat5, j: int, W):
+    """The compact rows folded j times, in full K form:
+    out[x] = sum_y W[y] orig[x 2^j + y]; [nf, S, ncomp, e, nl]."""
+    nf = fhat5.shape[0] * fhat5.shape[1]
+    tot = fhat5.shape[2]
+    return _fold_compact(ring, fhat5.view(nf, tot >> j, 1 << j, ring.ncomp, ring.nl), W)
+
+
+def prove_host_bigm(
+    ring: Ring,
+    transcript: Transcript,
+    full5,
+    fhat5,
+    nvars: int,
+    degree: int,
+    comb: Callable,
+    comb_consts=(),
+    expand_nvars: int = 13,
+):
+    """``prove`` with the compact f-hat rows kept unexpanded through the
+    first ``nvars - expand_nvars`` rounds (see the note above).
+
+    ``full5``: [n5, 2^nvars, ncomp, e, nl] expanded rows (eq / combined);
+    ``fhat5``: [2K, tau, 2^nvars, ncomp, nl] compact rows, or a one-element
+    list holding them: the list's entry is dropped after the expansion, so
+    the table is freed mid-sumcheck once the caller holds no other
+    reference. The comb sees [full5..., f-hat rows (2K-major)], the
+    standard path's order. Returns (SumcheckProof, challenges, final_vals
+    [n5 + nf, ncomp, e, nl])."""
+    fhat_box = fhat5 if isinstance(fhat5, list) else [fhat5]
+    fhat5 = None
+    cur5, full5 = full5, None
+    assert cur5.shape[1] == 1 << nvars and fhat_box[0].shape[2] == 1 << nvars
+    dev = cur5.device
+    transcript.absorb(ring.embed_int(nvars))
+    transcript.absorb(ring.embed_int(degree))
+    J = max(0, nvars - expand_nvars)
+    challenges, round_evals = [], []
+    for j in range(J):
+        W = _w_tensor(ring, challenges, dev)
+        evs = _bigm_round_evs(ring, comb, degree, cur5, fhat_box[0], j, W, comb_consts)
+        evs_host = list(rops.to_host(ring, evs))
         transcript.absorb_slice(evs_host)
         round_evals.append(evs_host)
         c = transcript.get_challenge()
         transcript.absorb_field_element(c)
         challenges.append(c)
-        cur = mlemod.fold(ring, cur, rops.k_to_device(ring, c, cur.device))
-    return SumcheckProof(round_evals), challenges, cur.squeeze(1)
+        cur5 = mlemod.fold(ring, cur5, rops.k_to_device(ring, c, dev))
+
+    fh_full = _bigm_expand(ring, fhat_box[0], J, _w_tensor(ring, challenges, dev))
+    fhat_box[0] = None  # the compact rows are dead: free the table
+    cur = torch.cat([cur5, fh_full])
+    del cur5, fh_full
+    final_vals = _rounds(ring, transcript, cur, nvars - J, degree, comb, comb_consts, challenges, round_evals)
+    return SumcheckProof(round_evals), challenges, final_vals
 
 
 # ---------------------------------------------------------------------------

@@ -140,29 +140,26 @@ def harness(tmp_path_factory):
     return str(exe)
 
 
-def plane_products(ring, n, Nb, seed):
-    """(P, sM, rows) of a seeded witness batch at kappa 2: the slices' plane
-    products as kernel A gives them."""
-    scheme = AjtaiScheme(ring, KAPPA, n, seed=seed, device="cpu")
+def plane_products(ring, n, Nb, seed, kappa=KAPPA, kslice=SLICE):
+    """(P, sM, rows) of a seeded witness batch: the slices' plane products
+    as kernel A gives them."""
+    scheme = AjtaiScheme(ring, kappa, n, seed=seed, device="cpu")
     pre = scheme._fused_planes
     rng = np.random.default_rng(seed)
     limbs = rng.integers(0, 1 << 32, size=(ring.ncomp, n, ring.e, Nb, ring.nl), dtype=np.uint64)
     limbs[..., -1] %= np.uint64(ring.q >> (32 * (ring.nl - 1)))  # canonical: below q
     w2d = torch.from_numpy(limbs.astype(np.int64)).reshape(ring.ncomp, n, -1)
-    P = torch.stack([pc.plane_dot_plain(pre.lhs_i8[:, :, k0 : k0 + SLICE], w2d[:, k0 : k0 + SLICE])
-                     for k0 in range(0, n, SLICE)])
+    del limbs
+    P = torch.stack([pc.plane_dot_plain(pre.lhs_i8[:, :, k0 : k0 + kslice], w2d[:, k0 : k0 + kslice])
+                     for k0 in range(0, n, kslice)])
     return P, pre.sM, pre.rows
 
 
-@pytest.mark.parametrize("n", [200, 400], ids=["one_slice", "two_slices"])
-@pytest.mark.parametrize("name", list(NB))
-def test_diagonal_blocks_match_plain_epilogue(harness, tmp_path, monkeypatch, name, n):
-    monkeypatch.setattr(pc, "_K_SLICE", SLICE)
-    ring = get_ring(name)
-    Nb = NB[name]
-    P, sM, rows = plane_products(ring, n, Nb, seed=3 + n)
+def check_blocks(harness, tmp_path, ring, P, sM, rows, n, Nb, kappa, kslice):
+    """Every block of kernel B's grid, at one and two b groups a block,
+    against the plain epilogue on (P, sM)."""
     nsl, c, mpad, four_l = P.shape
-    assert nsl == -(-n // SLICE)
+    assert nsl == -(-n // kslice)
     want = pc.epilogue_plain(ring, P, sM, rows, n, Nb)
     P.numpy().astype(np.int32).tofile(tmp_path / "P.bin")
     sM.numpy().astype(np.int32).tofile(tmp_path / "sM.bin")
@@ -171,8 +168,27 @@ def test_diagonal_blocks_match_plain_epilogue(harness, tmp_path, monkeypatch, na
         red.numpy().astype(np.int64).tofile(tmp_path / "red.bin")
     words = list(cuda.field_constants(ring.q, ring.nl))
     for nbb in (1, 2):
-        head = [ring.nl, ring.e, nsl, c, mpad, four_l // 4, rows, KAPPA, Nb, n, SLICE, nbb, len(words)]
+        head = [ring.nl, ring.e, nsl, c, mpad, four_l // 4, rows, kappa, Nb, n, kslice, nbb, len(words)]
         run = subprocess.run([harness, str(tmp_path)], input=(" ".join(map(str, head + words)) + "\n").encode(),
                              capture_output=True, check=True)
         got = np.frombuffer(run.stdout, dtype=np.int64).reshape(tuple(want.shape))
-        assert np.array_equal(got, want.numpy()), (name, n, nbb, int((got != want.numpy()).sum()))
+        assert np.array_equal(got, want.numpy()), (ring.name, n, nbb, int((got != want.numpy()).sum()))
+
+
+@pytest.mark.parametrize("n", [200, 400], ids=["one_slice", "two_slices"])
+@pytest.mark.parametrize("name", list(NB))
+def test_diagonal_blocks_match_plain_epilogue(harness, tmp_path, monkeypatch, name, n):
+    monkeypatch.setattr(pc, "_K_SLICE", SLICE)
+    ring = get_ring(name)
+    P, sM, rows = plane_products(ring, n, NB[name], seed=3 + n)
+    check_blocks(harness, tmp_path, ring, P, sM, rows, n, NB[name], KAPPA, SLICE)
+
+
+def test_diagonal_blocks_match_plain_epilogue_five_slices(harness, tmp_path):
+    """Five slices at the shape of the big-m Goldilocks fold's batch commits
+    (m 2^18: kappa 9, n 163840 = 5 x 2^15, Nb = K - 1 = 14, the real
+    ``_K_SLICE``): kernel B with nsl 5, which the card runs only there."""
+    ring = get_ring("goldilocks")
+    n, Nb, kappa = 5 * pc._K_SLICE, 14, 9
+    P, sM, rows = plane_products(ring, n, Nb, seed=11, kappa=kappa, kslice=pc._K_SLICE)
+    check_blocks(harness, tmp_path, ring, P, sM, rows, n, Nb, kappa, pc._K_SLICE)

@@ -56,7 +56,7 @@ def test_decomposition_batch_fused_matches_jax_commit_batch():
     (n-major, as the JAX decomposition stacks them)."""
     dp, ring, ccs, scheme, wit, _, _ = _fixture()
     wit_s = tdecomposition.decompose_witness(ring, dp, wit, ccs.m)
-    batch = tdecomposition.digit_batch(ring, wit_s[1:])
+    batch = tdecomposition.digit_batch(ring, [w.f for w in wit_s[1:]])
     assert tuple(batch.shape) == (ring.ncomp, scheme.n, ring.e, dp.K - 1, ring.nl)
     got = convert.to_numpy(scheme.commit_batch_fused(batch))
     jscheme = AjtaiScheme(get_ring("goldilocks"), KAPPA, scheme.n, seed=7)
