@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive latticefold_torch's main paths on one NVIDIA GPU and check them.
 
-  python3 chip_smoke.py   # every path, about 15 min of command time
+  python3 chip_smoke.py   # every path, about 16 min of command time
 
 The paths: one NIFS fold per ring through ``nifs.prove`` / ``nifs.verify``,
 on the identity R1CS of wit_len 4096, x_len 1, with a witness of ones and
@@ -129,10 +129,33 @@ Phases (any failure raises and the script exits non-zero):
    diagonal epilogue 2, nothing else), verified, w0 opens, peak device
    memory under 90 % of the card's, prove s, verify s, peak and the
    memory held at its start recorded.
-4. Print the ``kernels`` JSON line (one entry per kernel and fold path, the
+4. LatticeFold+ (``latticefold_torch.plus``) on Frog; every prove is
+   counted and must launch the tensor-core CRT L + 3 and the commit kernel
+   2L + 1 times for L folded instances, and nothing else (``ComR1CS.new``:
+   2 and 1); each records prove s, the host seconds in the sponge, in the
+   subprotocols and in the costliest host loops (t(z), the split into
+   tau, comh), and peak device memory:
+   4a. The JAX package's bench at its TPU defaults (``PLUS_BENCH``: n
+       2^15, k 2, kappa 2, the identity R1CS, z all ones, Ajtai seed 7):
+       the commit kernel against the plain commit at kappa 2, n 2^15 and
+       Nb 1, 2, 3 and 32 (the path's commit shapes; the CRT's shapes are
+       the Frog fold's, held in phase 2), ``commit_batch_fused`` (kernels
+       A and B, off this path) against the commit kernel at the same
+       shapes, then one prove (L = 1), the port's verifier on a fresh
+       transcript, verify s and proof bytes (raw and zlib).
+   4b. The reference's accumulation test (``PLUS_MULTI``: n 2^15, k 4,
+       kappa 1): the same kernel checks at Nb 1, 2, 3 and 64, then 3
+       rounds on one prover (L = 3 from round 2), each verified by one
+       verifier that carries its transcript across rounds; round 3's peak
+       within PLUS_PEAK_NOISE of round 2's.
+   4c. The tests' small fixture (``PLUS_SMALL``: n 2^13, k 1) proved on
+       the card (verified) and on the CPU: equal ``serialize_plus_proof``
+       bytes, whose SHA-256 is the JAX prover's (``PLUS_SMALL_SHA256``).
+5. Print the ``kernels`` JSON line (one entry per kernel and fold path, the
    SIMT CRT, the item-per-thread epilogue and the commit kernel marked off
-   the main path, and per kernel, mode and shape of phase 1b), then the
-   card line, then the last line
+   the fold paths, the CRT and the commit kernel for 4a and 4b (4b with
+   round 2's launches), and per kernel, mode and shape of phase 1b), then
+   the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Without a card, or without the ``latticefold_torch`` package beside it,
@@ -189,6 +212,21 @@ MODERATE_B = ("goldilocks", "DP_GOLDILOCKS_B16", 9)
 BIGM_EXPAND_NVARS = 13
 BIGM = ("goldilocks", 32768, 9)
 PEAK_SHARE_MAX = 0.9  # a fold's peak device memory must stay under this share of the card's
+# phase 4, LatticeFold+ (latticefold_torch.plus) on Frog (q < 2^64: the C++
+# sponge). 4a: the JAX package's bench at its TPU defaults
+# (benches/run.py:253-264): n, k, kappa; b = d/2, l = 22,
+# B = estimate_bound(d 128, 3, d, k) + 1, the identity R1CS through
+# r1cs_decomposed_square, z all ones, Ajtai seed 7
+PLUS_BENCH = (1 << 15, 2, 2)
+# 4b: the reference's test_prove_multi (tests/test_plus.py:346-379): n, k,
+# kappa, rounds on one prover; B = estimate_bound(d 128, 3, d, k) // 2
+PLUS_MULTI = (1 << 15, 4, 1, 3)
+PLUS_PEAK_NOISE = 0.01  # 4b: round 3's peak may exceed round 2's by this share
+# 4c: tests/test_plus.py's small fixture, _plus_setup(n=2^13, k=1) (kappa 1),
+# and the SHA-256 of the JAX prover's serialize_plus_proof bytes for it
+# (tests/test_torch_plus.py's JAX_PLUS_E2E_SHA256)
+PLUS_SMALL = (1 << 13, 1, 1)
+PLUS_SMALL_SHA256 = "a155fe6c1293ac985ca3b7752773dfffe2fcccb7dd9014b8046dfc8ace221bf0"
 # bench.py's headline commit (bench.py:114-151): ring, kappa, n, Ajtai seed, batches
 BENCH_COMMIT = ("goldilocks", 9, 1 << 15, 1, (16, 64))
 # the two-slice batch commit: bench.py's ring, kappa and Nb 16 at n 2^16
@@ -197,7 +235,14 @@ PROBE_C, PROBE_MPAD, PROBE_K = 8, 224, 1 << 15  # the probes' commit-dot shape
 
 
 def log(msg):
-    print(f"[{time.perf_counter() - T0:7.1f} s] {msg}", flush=True)
+    """Print a timestamped line, and append it to chiprun_out/chip_smoke_run.log
+    once that directory exists (the whole log, which the end of the output
+    may not hold)."""
+    line = f"[{time.perf_counter() - T0:7.1f} s] {msg}"
+    print(line, flush=True)
+    if os.path.isdir(OUT_DIR):
+        with open(os.path.join(OUT_DIR, "chip_smoke_run.log"), "a") as fh:
+            fh.write(line + "\n")
 
 
 T0 = time.perf_counter()
@@ -346,36 +391,43 @@ def check_kernels(name, dp, scheme, device, wit_len=WIT_LEN):
     path's shapes. Returns {(kernel, shape): numbers}."""
     import torch
 
-    from latticefold_torch.rings import mxu
-
     ring = scheme.ring
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)  # > 50 MB L2
     n = scheme.n
     results = check_crt(name, ring, n, device, flush, wit_len)
 
-    kappa = scheme.kappa
     for Nb, seed in ((dp.K - 1, 3), (1, 4)):
-        f = rand_field(ring, (n, Nb, ring.ncomp, ring.e), seed, device)
-        got = mxu._commit_kernel(ring, scheme.matrix, f)
-        want = commit_plain(ring, scheme.matrix, f)
-        torch.cuda.synchronize()
-        err = int((got != want).sum().item())
-        if err:
-            raise AssertionError(f"commit kernel [{name}] (Nb={Nb}): {err} limbs differ from the plain version")
-        del want
-        ms = time_ms(lambda: mxu._commit_kernel(ring, scheme.matrix, f), 10, flush)
-        plain_ms = time_ms(lambda: commit_plain(ring, scheme.matrix, f), 1, flush)
-        b = bound(ring, (kappa * n + n * Nb + kappa * Nb) * ring.ncomp * ring.e,
-                  kappa * Nb * ring.ncomp * n * ring.e**2)
-        results[("commit", f"kappa={kappa} n={n} Nb={Nb}")] = dict(
-            ms=ms, plain_ms=plain_ms, max_abs_err=0, **b)
-        log(f"[kernels] commit_kernel[{name}] kappa={kappa} n={n} Nb={Nb}: {ms:.4f} ms  "
-            f"plain {plain_ms:.2f} ms  bound {b['bound_ms']:.4f} ms ({b['bound_by']}; bytes "
-            f"{b['bytes_ms']:.4f}, {b['mad32']:.3e} mad32 {b['ops_ms']:.4f})  exact")
-        del f, got
+        results[("commit", f"kappa={scheme.kappa} n={n} Nb={Nb}")] = check_commit(name, scheme, Nb, seed, device,
+                                                                                 flush)
     del flush
     torch.cuda.empty_cache()
     return results
+
+
+def check_commit(name, scheme, Nb, seed, device, flush):
+    """The commit kernel against the plain commit on a seeded batch of Nb
+    witnesses at the scheme's (kappa, n), both timed. Returns the record."""
+    import torch
+
+    from latticefold_torch.rings import mxu
+
+    ring, kappa, n = scheme.ring, scheme.kappa, scheme.n
+    f = rand_field(ring, (n, Nb, ring.ncomp, ring.e), seed, device)
+    got = mxu._commit_kernel(ring, scheme.matrix, f)
+    want = commit_plain(ring, scheme.matrix, f)
+    torch.cuda.synchronize()
+    err = int((got != want).sum().item())
+    if err:
+        raise AssertionError(f"commit kernel [{name}] (Nb={Nb}): {err} limbs differ from the plain version")
+    del want, got
+    ms = time_ms(lambda: mxu._commit_kernel(ring, scheme.matrix, f), 10, flush)
+    plain_ms = time_ms(lambda: commit_plain(ring, scheme.matrix, f), 1, flush)
+    b = bound(ring, (kappa * n + n * Nb + kappa * Nb) * ring.ncomp * ring.e,
+              kappa * Nb * ring.ncomp * n * ring.e**2)
+    log(f"[kernels] commit_kernel[{name}] kappa={kappa} n={n} Nb={Nb}: {ms:.4f} ms  "
+        f"plain {plain_ms:.2f} ms  bound {b['bound_ms']:.4f} ms ({b['bound_by']}; bytes "
+        f"{b['bytes_ms']:.4f}, {b['mad32']:.3e} mad32 {b['ops_ms']:.4f})  exact")
+    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=0, **b)
 
 
 @contextlib.contextmanager
@@ -1325,16 +1377,21 @@ def peak_sweep(device, wit_lens=(8192, 16384, 32768)):
     return out
 
 
-def kernel_entries(label, name, n, Nb, kres, launches, route_rec):
-    """The ``kernels`` JSON entries of one fold path (``label``, on ring
-    ``name`` at Ajtai width ``n``): each kernel at the shape the prove
-    launches it at (the CRTs at crt N = n; the Hopper dot, the epilogue and
-    the commit kernel at Nb = K - 1, the commit kernel where phase 2
+def kernel_entries(label, name, n, Nb, kres, launches, route_rec, kappa=None):
+    """The ``kernels`` JSON entries of one path (``label``, on ring ``name``
+    at Ajtai width ``n``): each kernel at the shape the prove launches it at
+    (the CRTs at crt N = n; the Hopper dot, the epilogue and the commit
+    kernel at Nb = K - 1 for a fold, the commit kernel where phase 2
     measured that shape), with the other shapes beside it and ``launches``
-    from the path's counted prove. The SIMT CRT and the commit kernel are
-    off the main path."""
-    kappa = route_rec["kappa"]
-    entries = route_entries(label, route_rec, launches)
+    from the path's counted prove. A kernel the path does not launch (on a
+    fold the SIMT CRT and the commit kernel) is marked off the main path.
+    ``route_rec``: the fold's phase 1b record, or None on a path that does
+    not take the byte-plane route (then ``kappa`` is given)."""
+    if route_rec is None:
+        entries = []
+    else:
+        kappa = route_rec["kappa"]
+        entries = route_entries(label, route_rec, launches)
     for key, main in (("crt_tc", f"crt N={n}"), ("crt", f"crt N={n}"),
                       ("commit", f"kappa={kappa} n={n} Nb={Nb}")):
         if (key, main) not in kres:
@@ -1349,7 +1406,7 @@ def kernel_entries(label, name, n, Nb, kres, launches, route_rec):
         entries.append(dict(
             info, ring=name, launches=launches.get(key, 0), max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=None, shape=main, on_main_path=key == "crt_tc", **extra,
+            library_ms=None, shape=main, on_main_path=launches.get(key, 0) > 0, **extra,
             other_shapes={s: {k: v for k, v in rec.items() if k != "lane_floor"}
                           for (k, s), rec in kres.items() if k == key and s != main},
         ))
@@ -1457,6 +1514,298 @@ def run_bigm_phase(device, std_fold, std_proof, kres_std, plane_rec):
     return dict(forced_m15=forced, m18=big, kernels={f"{k}:{sh}": v for (k, sh), v in kres.items()}), entries
 
 
+def plus_launches(L: int) -> dict:
+    """The launches of one ``PlusProver.prove`` that folds L instances: an
+    ICRT in each ``RgInstance.from_f`` and the ICRT and two CRTs of
+    ``decompose`` on the tensor-core CRT; two batch commits in each
+    ``from_f`` and one in ``decompose`` on the commit kernel; nothing else."""
+    return {"crt_tc": L + 3, "commit": 2 * L + 1}
+
+
+def plus_setup(n, k, kappa, B, device):
+    """The LatticeFold+ instance of benches/run.py:253-264 (and
+    tests/test_plus.py's ``_plus_setup``) on Frog at (n, k, kappa, B): the
+    identity R1CS of m = n / k constraints through
+    ``r1cs_decomposed_square``, z all ones, Ajtai seed 7. On the card
+    ``ComR1CS.new`` is counted: crt_tc 2 (the ICRT of z, the CRT of f) and
+    commit 1. Returns (scheme, ComR1CS, PlusParameters)."""
+    import math
+
+    from latticefold_torch.arith.sparse import SparseMatrix
+    from latticefold_torch.commitment import AjtaiScheme
+    from latticefold_torch.plus import ComR1CS, DecompParameters, LinParameters, PlusParameters
+    from latticefold_torch.plus.r1cs import r1cs_decomposed_square
+    from latticefold_torch.rings import ops
+    from latticefold_torch.rings.construct import get_ring
+
+    ring = get_ring("frog")
+    m = n // k
+    b = ring.d // 2
+    dparams = DecompParameters(b=b, k=k, l=math.ceil(math.log(ring.q) / math.log(b)))
+    ident = SparseMatrix(ring, m, m, [[(1, i)] for i in range(m)])
+    mats = r1cs_decomposed_square(ring, ident, ident, ident, n, B, k)
+    scheme = AjtaiScheme(ring, kappa, n, seed=7, device=device)
+    z = ops.to_device(ring, [ring.crt_host([1] + [0] * (ring.d - 1))] * m, device)
+
+    def new():
+        return ComR1CS.new(ring, list(mats), z, 1, B, k, scheme)
+
+    c = counted("ComR1CS.new", new, {"crt_tc": 2, "commit": 1})[0] if device.type == "cuda" else new()
+    return scheme, c, PlusParameters(lin=LinParameters(kappa=kappa, decomp=dparams), B=B)
+
+
+@contextlib.contextmanager
+def plus_timers(acc: dict):
+    """Adds the seconds of the LatticeFold+ prover's parts to ``acc[name]``
+    while the block runs (to a device synchronize): its subprotocols
+    (``r1cs.linearize``, ``RgInstance.from_f``, ``Rg.range_check`` -- the
+    set check and the openings --, each of ``cm``'s two batched sumchecks
+    ``_sumchecker``, ``decomp.decompose``) and its costliest host loops
+    (``cm.calculate_t_z``, the split of the commitment into tau
+    ``rgchk.split``, ``cm._comh``)."""
+    import torch
+
+    from latticefold_torch.plus import cm, decomp, r1cs, rgchk
+
+    targets = ((r1cs, "linearize"), (rgchk.RgInstance, "from_f"), (rgchk.Rg, "range_check"),
+               (cm, "_sumchecker"), (decomp, "decompose"), (cm, "calculate_t_z"), (rgchk, "split"),
+               (cm, "_comh"))
+    saved = [(owner, name, owner.__dict__[name]) for owner, name in targets]
+
+    def wrap(name, fn):
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                torch.cuda.synchronize()
+                acc[name] = acc.get(name, 0.0) + time.perf_counter() - t0
+        return timed
+
+    for owner, name, fn in saved:
+        setattr(owner, name, classmethod(wrap(name, fn.__func__)) if isinstance(fn, classmethod) else wrap(name, fn))
+    try:
+        yield acc
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+def plus_round(label, prover, c, L, device):
+    """One ``PlusProver.prove`` of the instance ``c`` that folds L instances
+    (the accumulator's and c), counted: crt_tc L + 3, commit 2L + 1 and
+    nothing else. Times the sponge and the prover's parts (``plus_timers``).
+    Returns (proof, record)."""
+    import torch
+
+    from latticefold_torch.native import NativeSponge
+
+    sponge_cls = type(prover.transcript.sponge)
+    if sponge_cls is not NativeSponge:
+        raise AssertionError("the native Poseidon sponge did not build or load (g++ on PATH?)")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    live = torch.cuda.memory_allocated(device)
+    sponge, parts = {"s": 0.0}, {}
+    t0 = time.perf_counter()
+    with sponge_timer(sponge_cls, sponge), plus_timers(parts):
+        proof, launches = counted(f"LatticeFold+ prove [{label}]", lambda: prover.prove([c]), plus_launches(L))
+    prove_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device)
+    check_peak(f"LatticeFold+ [{label}]", peak, device)
+    rec = dict(L=L, prove_s=prove_s, sponge_s=sponge["s"], parts_s=parts, peak_bytes=peak,
+               reserved_bytes=torch.cuda.max_memory_reserved(device), live_bytes=live, launches=launches)
+    log(f"[plus {label}] prove {prove_s:.3f} s (L={L}; host sponge {sponge['s']:.3f} s; parts "
+        f"{ {k: round(v, 3) for k, v in parts.items()} }), peak device memory {peak} B ({live} B held at its "
+        f"start), launches {launches}")
+    return proof, rec
+
+
+def plane_route_check(label, scheme, Nb, seed, device, flush):
+    """The byte-plane batch commit (kernels A and B, ``commit_batch_fused``)
+    against the commit kernel (``commit_batch_cm``) on a seeded batch of Nb
+    witnesses at the scheme's (kappa, n), counted and both timed. Not on the
+    LatticeFold+ path: the cross-check of the route at its shapes."""
+    from latticefold_torch.rings import plane_commit as pc
+
+    ring, n = scheme.ring, scheme.n
+    fcm = pc.empty_batch(ring, n, Nb, device)
+    fcm.copy_(rand_field(ring, (ring.ncomp, n, ring.e, Nb), seed, device))
+    got, launches = counted(f"commit_batch_fused [{label} Nb={Nb}]", lambda: scheme.commit_batch_fused(fcm),
+                            {"plane_dot_sm90": -(-n // pc._K_SLICE), "plane_epilogue_diag": 1})
+    err = int((got != scheme.commit_batch_cm(fcm)).sum().item())
+    if err:
+        raise AssertionError(f"commit_batch_fused [{label} Nb={Nb}]: {err} limbs differ from the commit kernel's")
+    rec = dict(Nb=Nb, launches=launches, fused_ms=time_ms(lambda: scheme.commit_batch_fused(fcm), 10, flush),
+               cm_ms=time_ms(lambda: scheme.commit_batch_cm(fcm), 10, flush))
+    log(f"[plus {label}] commit_batch_fused kappa={scheme.kappa} n={n} Nb={Nb}: equal to the commit kernel; "
+        f"{rec['fused_ms']:.4f} ms against the commit kernel's {rec['cm_ms']:.4f} ms; launches {launches}")
+    return rec
+
+
+def plus_kernel_checks(label, scheme, Nbs, device):
+    """The commit kernel against the plain commit, and the byte-plane route
+    against the commit kernel, at the scheme's (kappa, n) and each Nb.
+    Returns ({(kernel, shape): numbers}, {Nb: route record})."""
+    import torch
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    kres, route = {}, {}
+    for i, Nb in enumerate(Nbs):
+        kres[("commit", f"kappa={scheme.kappa} n={scheme.n} Nb={Nb}")] = check_commit(
+            f"{label}", scheme, Nb, 20 + i, device, flush)
+        route[f"Nb={Nb}"] = plane_route_check(label, scheme, Nb, 40 + i, device, flush)
+    del flush
+    torch.cuda.empty_cache()
+    return kres, route
+
+
+def run_plus_bench(device, kres_crt):
+    """Phase 4a: ``PLUS_BENCH``. Kernel checks at the path's commit shapes
+    (Nb 1, 2, 3 and k d), one counted ``PlusProver.prove`` (L = 1), the
+    port's verifier on a fresh transcript, the proof's serialization round
+    trip. Returns (record, kernels JSON entries)."""
+    import zlib
+
+    from latticefold_torch import serialization as ser
+    from latticefold_torch.plus import PlusProver, PlusTranscript, PlusVerifier, estimate_bound
+    from latticefold_torch.rings.construct import get_ring
+
+    ring = get_ring("frog")
+    n, k, kappa = PLUS_BENCH
+    B = estimate_bound(ring.d * 128, 3, ring.d, k) + 1
+    label = f"frog plus n={n} k={k} kappa={kappa}"
+    t0 = time.perf_counter()
+    scheme, c, pparams = plus_setup(n, k, kappa, B, device)
+    setup_s = time.perf_counter() - t0
+    log(f"[plus {label}] B={B} l={pparams.lin.decomp.l}: setup {setup_s:.2f} s")
+    kres, route = plus_kernel_checks(label, scheme, (1, 2, 3, k * ring.d), device)
+    prover = PlusProver(scheme=scheme, M=c.x.matrices, transcript=PlusTranscript(ring), params=pparams)
+    proof, rnd = plus_round(label, prover, c, 1, device)
+    t0 = time.perf_counter()
+    PlusVerifier(ring=ring, M=c.x.matrices, transcript=PlusTranscript(ring), params=pparams).verify(proof)
+    verify_s = time.perf_counter() - t0
+    blob = ser.serialize_plus_proof(ring, proof)
+    if ser.serialize_plus_proof(ring, ser.deserialize_plus_proof(ring, blob)) != blob:
+        raise AssertionError(f"[plus {label}] the proof does not survive a round trip")
+    rec = dict(n=n, k=k, kappa=kappa, B=B, l=pparams.lin.decomp.l, setup_s=setup_s, verify_s=verify_s,
+               proof_bytes=len(blob), proof_zlib_bytes=len(zlib.compress(blob)), route=route, **rnd,
+               kernels={f"{kk}:{sh}": v for (kk, sh), v in kres.items()})
+    log(f"[plus {label}] verify {verify_s:.3f} s: the port's verifier accepts; proof {len(blob)} B "
+        f"({rec['proof_zlib_bytes']} B zlib)")
+    entries = kernel_entries(label, "frog", n, k * ring.d, {**kres_crt, **kres}, rnd["launches"], None, kappa)
+    del prover, proof, scheme, c
+    return rec, entries
+
+
+def run_plus_multi(device, kres_crt):
+    """Phase 4b: ``PLUS_MULTI``, the reference's accumulation test. Kernel
+    checks at its commit shapes (Nb 1, 2, 3 and k d); the rounds on one
+    prover, each verified by one verifier that carries its transcript
+    across rounds. From round 2 on the accumulator holds L = 3 instances.
+    Round 3's peak must not pass round 2's by more than PLUS_PEAK_NOISE.
+    Returns (record, kernels JSON entries: round 2's launches)."""
+    import zlib
+
+    import torch
+
+    from latticefold_torch import serialization as ser
+    from latticefold_torch.plus import PlusProver, PlusTranscript, PlusVerifier, estimate_bound
+    from latticefold_torch.rings.construct import get_ring
+
+    ring = get_ring("frog")
+    n, k, kappa, rounds = PLUS_MULTI
+    B = estimate_bound(ring.d * 128, 3, ring.d, k) // 2
+    label = f"frog plus n={n} k={k} kappa={kappa}"
+    t0 = time.perf_counter()
+    scheme, c, pparams = plus_setup(n, k, kappa, B, device)
+    setup_s = time.perf_counter() - t0
+    log(f"[plus {label}] B={B}: setup {setup_s:.2f} s")
+    kres, route = plus_kernel_checks(label, scheme, (1, 2, 3, k * ring.d), device)
+    prover = PlusProver(scheme=scheme, M=c.x.matrices, transcript=PlusTranscript(ring), params=pparams)
+    verifier = PlusVerifier(ring=ring, M=c.x.matrices, transcript=PlusTranscript(ring), params=pparams)
+    recs = []
+    for i in range(rounds):
+        proof, rnd = plus_round(f"{label} round {i + 1}", prover, c, 1 if i == 0 else 3, device)
+        t0 = time.perf_counter()
+        verifier.verify(proof)
+        verify_s = time.perf_counter() - t0
+        blob = ser.serialize_plus_proof(ring, proof)
+        recs.append(dict(round=i + 1, verify_s=verify_s, proof_bytes=len(blob),
+                         proof_zlib_bytes=len(zlib.compress(blob)), **rnd))
+        log(f"[plus {label}] round {i + 1}: verified in {verify_s:.3f} s (the verifier's transcript carried "
+            f"across rounds); proof {len(blob)} B")
+        del proof
+    if rounds >= 3 and recs[2]["peak_bytes"] > recs[1]["peak_bytes"] * (1 + PLUS_PEAK_NOISE):
+        raise AssertionError(f"[plus {label}] round 3's peak {recs[2]['peak_bytes']} B passes round 2's "
+                             f"{recs[1]['peak_bytes']} B by more than {PLUS_PEAK_NOISE}")
+    entries = kernel_entries(label, "frog", n, k * ring.d, {**kres_crt, **kres}, recs[1]["launches"], None, kappa)
+    del prover, verifier, scheme, c
+    torch.cuda.empty_cache()
+    return dict(n=n, k=k, kappa=kappa, B=B, setup_s=setup_s, rounds=recs, route=route,
+                kernels={f"{kk}:{sh}": v for (kk, sh), v in kres.items()}), entries
+
+
+def run_plus_small(device):
+    """Phase 4c: ``PLUS_SMALL`` proved once on the card (verified) and once
+    on the CPU: the ``serialize_plus_proof`` bytes must be equal, and hash
+    to the JAX prover's digest (PLUS_SMALL_SHA256)."""
+    import hashlib
+
+    import torch
+
+    from latticefold_torch import serialization as ser
+    from latticefold_torch.plus import PlusProver, PlusTranscript, PlusVerifier, estimate_bound
+    from latticefold_torch.rings.construct import get_ring
+
+    ring = get_ring("frog")
+    n, k, kappa = PLUS_SMALL
+    B = estimate_bound(ring.d * 128, 3, ring.d, k) + 1
+
+    def prove_on(dev):
+        t0 = time.perf_counter()
+        scheme, c, pparams = plus_setup(n, k, kappa, B, dev)
+        proof = PlusProver(scheme=scheme, M=c.x.matrices, transcript=PlusTranscript(ring), params=pparams).prove([c])
+        if dev.type == "cuda":
+            PlusVerifier(ring=ring, M=c.x.matrices, transcript=PlusTranscript(ring), params=pparams).verify(proof)
+        return ser.serialize_plus_proof(ring, proof), time.perf_counter() - t0
+
+    card, card_s = prove_on(device)
+    cpu, cpu_s = prove_on(torch.device("cpu"))
+    if card != cpu:
+        raise AssertionError("small LatticeFold+ fixture: the card's proof bytes differ from the CPU's")
+    digest = hashlib.sha256(card).hexdigest()
+    if digest != PLUS_SMALL_SHA256:
+        raise AssertionError(f"small LatticeFold+ fixture: sha256 {digest}, the JAX prover's {PLUS_SMALL_SHA256}")
+    log(f"[plus small n={n} k={k}] card {card_s:.1f} s (verified), CPU {cpu_s:.1f} s: equal proof bytes "
+        f"({len(card)} B), the JAX prover's digest")
+    return dict(n=n, k=k, kappa=kappa, card_s=card_s, cpu_s=cpu_s, proof_bytes=len(card), sha256=digest)
+
+
+def run_plus_phase(device, kres_frog=None):
+    """Phase 4, LatticeFold+: 4a, 4b, 4c. ``kres_frog``: phase 2's Frog
+    records, whose CRT shapes at crt N = 2^15 are this path's; without them
+    (phase 4 alone) the CRT is held here at the path's shapes (icrt N = m,
+    crt and icrt N = n). Returns (record, kernels JSON entries)."""
+    import torch
+
+    from latticefold_torch.rings.construct import get_ring
+
+    if kres_frog is None:
+        n, k, _ = PLUS_BENCH
+        flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+        kres_frog = check_crt("frog plus", get_ring("frog"), n, device, flush, n // k)
+        del flush
+    kres_crt = {key: v for key, v in kres_frog.items() if key[0] == "crt_tc"}
+    record = {}
+    record["bench"], entries = run_plus_bench(device, kres_crt)
+    torch.cuda.empty_cache()
+    record["multi"], ent = run_plus_multi(device, kres_crt)
+    entries += ent
+    record["small"] = run_plus_small(device)
+    return record, entries
+
+
 def main() -> int:
     import torch
 
@@ -1473,6 +1822,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     device = torch.device("cuda", torch.cuda.current_device())
+    os.makedirs(OUT_DIR, exist_ok=True)
+    open(os.path.join(OUT_DIR, "chip_smoke_run.log"), "w").close()
 
     # phase 1: the card and the build
     kind = torch.cuda.get_device_name(0)
@@ -1483,7 +1834,6 @@ def main() -> int:
     built = cuda.build()
     log(f"[build] {', '.join(f'{k} {v:.1f} s' for k, v in built.items()) or 'up to date'} "
         f"(wall {time.perf_counter() - t0:.1f} s, parallel nvcc)")
-    os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_build.log"), "w") as fh:
         for k, v in cuda.BUILD_LOG.items():
             fh.write(f"== {k}\n{v}\n")
@@ -1528,7 +1878,11 @@ def main() -> int:
                                           record["plane_commit"])
     entries += ent
 
-    # phase 4: the record
+    # phase 4: LatticeFold+
+    record["plus"], ent = run_plus_phase(device, kres_by_ring["frog"])
+    entries += ent
+
+    # phase 5: the record
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
         json.dump(record, fh, indent=1)
     print(json.dumps({"kernels": entries}), flush=True)

@@ -126,3 +126,19 @@ class SparseMatrix:
                 acc = ring.radd(acc, ring.rmul(cc, z[j]))
             out.append(acc)
         return out
+
+    def transpose_mul_scalar_host(self, ring: Ring, w: List[int]) -> List[int]:
+        """u = M^T w for F_q scalar weights (host). Requires scalar
+        coefficients; the LatticeFold+ set check's and range check's
+        transpose trick (plus/setchk.py, plus/rgchk.py)."""
+        if not self.scalar_coeffs:
+            raise NotImplementedError("transpose trick needs F_q-scalar matrix entries")
+        q = ring.q
+        out = [0] * self.ncols
+        for i, row in enumerate(self.rows):
+            wi = w[i] if i < len(w) else 0
+            if not wi:
+                continue
+            for c, j in row:
+                out[j] = (out[j] + c * wi) % q
+        return out

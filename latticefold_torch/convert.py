@@ -4,7 +4,9 @@ The port imports nothing of the JAX package; this module takes plain numpy
 arrays of u32 limbs (the layout both packages share at their public
 functions: NTT form ``[..., ncomp, e, nl]``, coefficient form ``[..., d, nl]``,
 Montgomery where the JAX package keeps Montgomery) and returns the port's
-tensors and objects on a given device, and back.
+tensors and objects on a given device, and back. A LatticeFold+ setup
+crosses as its Ajtai matrix (``ajtai_scheme``) and its committed R1CS
+instance with the sparse matrices' row lists (``com_r1cs``).
 """
 
 from __future__ import annotations
@@ -12,10 +14,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .arith.sparse import SparseMatrix
 from .arith.witness import Witness
 from .commitment import AjtaiScheme
 from .device import resolve
 from .params import DecompositionParams
+from .plus.r1cs import ComR1CS, ComR1CSX
 from .rings.construct import Ring
 
 
@@ -51,3 +55,13 @@ def witness(
         f_coeff=None if f_coeff is None else tensor(f_coeff, device),
         f_hat=tensor(f_hat, device),
     )
+
+
+def com_r1cs(ring: Ring, matrices, z, f, cm_f, l_in: int, device=None) -> ComR1CS:
+    """A committed R1CS instance: ``matrices`` as (nrows, ncols, rows)
+    triples ([A, B, C]; a row: (coeff, col) pairs), z [m, ncomp, e, nl] and
+    f [n, ncomp, e, nl] u32 Montgomery NTT form, cm_f as kappa coefficient
+    lists (host ints)."""
+    mats = [SparseMatrix(ring, nrows, ncols, [list(r) for r in rows]) for nrows, ncols, rows in matrices]
+    x = ComR1CSX(matrices=mats, z=tensor(z, device), cm_f=[list(c) for c in cm_f], l_in=l_in)
+    return ComR1CS(x=x, f=tensor(f, device))

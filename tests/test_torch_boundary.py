@@ -76,3 +76,23 @@ def test_chain_entry_points_refuse_without_a_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serialization.deserialize_witness_f(ring, blob)
     assert serialization.deserialize_witness_f(ring, blob, "cpu").device.type == "cpu"
+
+
+def test_plus_entry_points_refuse_without_a_card():
+    """LatticeFold+ (``latticefold_torch/plus/``, covered by
+    test_no_jax_imports) makes its tables on the card unless the caller
+    names the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    from latticefold_torch.plus import mleops, setchk
+    from latticefold_torch.plus.transcript import PlusTranscript
+    from latticefold_torch.rings.construct import get_ring
+
+    assert any(p.startswith(os.path.join("latticefold_torch", "plus")) for p in _port_files())
+    ring = get_ring("frog")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mleops.scalars_dev(ring, [1, 2])
+    sets = [setchk.MatrixSet(idx=np.zeros((4, 4), dtype=np.int64))]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        setchk.set_check(ring, 2, sets, [], PlusTranscript(ring))
+    assert mleops.scalars_dev(ring, [1, 2], "cpu").device.type == "cpu"

@@ -1,9 +1,10 @@
 """The port's serialization module against the JAX package's: the same
-bytes for a proof, an LCCCS and a witness's f_coeff digits, and each
-module reads the other's bytes back to the same values. Proofs and
-accumulators are the port's fold of the small fixture of
-tests/test_nifs.py::setup() (Goldilocks) and, for all four rings, objects
-of the same structure filled with random field elements made from a seed.
+bytes for a proof, an LCCCS, a witness's f_coeff digits and a LatticeFold+
+proof, and each module reads the other's bytes back to the same values.
+Proofs and accumulators are the port's fold of the small fixture of
+tests/test_nifs.py::setup() (Goldilocks) and, for all four rings (the
+LatticeFold+ proof: Frog and Stark, its power-of-two rings), objects of
+the same structure filled with random field elements made from a seed.
 Tolerance: exact (bytes and integers)."""
 
 import functools
@@ -14,7 +15,23 @@ import torch
 
 import latticefold_torch.nifs as tnifs
 import latticefold_torch.nifs.linearization as tlinearization
+import latticefold_tpu.plus.cm as jcm
+import latticefold_tpu.plus.decomp as jdecomp
+import latticefold_tpu.plus.mlin as jmlin
+import latticefold_tpu.plus.plus as jplus
+import latticefold_tpu.plus.r1cs as jr1cs
+import latticefold_tpu.plus.rgchk as jrgchk
+import latticefold_tpu.plus.setchk as jsetchk
+import latticefold_tpu.plus.sumcheck as jpsc
 import latticefold_tpu.serialization as jser
+import latticefold_torch.plus.cm as tcm
+import latticefold_torch.plus.decomp as tdecomp
+import latticefold_torch.plus.mlin as tmlin
+import latticefold_torch.plus.plus as tplus
+import latticefold_torch.plus.r1cs as tr1cs
+import latticefold_torch.plus.rgchk as trgchk
+import latticefold_torch.plus.setchk as tsetchk
+import latticefold_torch.plus.sumcheck as tpsc
 from latticefold_torch import serialization as ser
 from latticefold_torch.arith.ccs import CCCS, CCS, LCCCS, Commitment, get_test_r1cs, get_test_z_split
 from latticefold_torch.arith.witness import Witness
@@ -170,6 +187,58 @@ def test_writer_reader_elements_match_jax(name):
     assert [r.fq() for _ in ints] == ints
     assert r.k_vec() == ks and r.ring_vec() == rs and r.ring_elt() == rs[0]
     assert r.u32() == 0xFFFFFFFF
+
+
+def _rand_plus_proof(g: _Rand, mods, L=2, Mlen=3, kappa=2, k=2, rounds=3):
+    """A LatticeFold+ proof of the given package's types (``mods``: its
+    plus modules), random coefficient lists from ``g``. Two calls with equal
+    seeds give equal values."""
+    psc, r1cs, setchk, rgchk, cm, decomp, mlin, plus = mods
+    d = g.ring.d
+
+    def c():
+        return [g.fq() for _ in range(d)]
+
+    def cv(n):
+        return [c() for _ in range(n)]
+
+    def sc(deg):
+        return psc.SumcheckProof([cv(deg + 1) for _ in range(rounds)])
+
+    def pairs(n):
+        return [(c(), c()) for _ in range(n)]
+
+    lproof = [r1cs.ComR1CSProof(sumcheck=sc(3), nvars=rounds, r=[g.fq() for _ in range(rounds)],
+                                v=c(), va=c(), vb=c(), vc=c())]
+    out = setchk.SetCheckOut(nvars=rounds, r=[g.fq() for _ in range(rounds)], sumcheck_proof=sc(3),
+                             e=[[cv(d) for _ in range(k * L)] for _ in range(1 + Mlen)], b=cv(L))
+    evals = [rgchk.DcomEvals(v=[g.fq() for _ in range(d)], a=[g.fq() for _ in range(1 + Mlen)],
+                             b=cv(1 + Mlen), c=cv(1 + Mlen)) for _ in range(L)]
+    fcoms = [rgchk.FComs(cm_f=cv(kappa), C_Mf=cv(kappa), cm_mtau=cv(kappa)) for _ in range(L)]
+    dcom = rgchk.Dcom(evals=evals, fcoms=fcoms, out=out, dparams=rgchk.DecompParameters(b=d // 2, k=k, l=22))
+    cmp = cm.CmProof(dcom=dcom, comh=[cv(kappa) for _ in range(L)], sumcheck_proofs=(sc(2), sc(2)),
+                     evals=tuple([cm.InstanceEvals(groups=[cv(4) for _ in range(1 + Mlen)]) for _ in range(L)]
+                                 for _ in range(2)))
+    dproof = decomp.DecompProof(C=(cv(kappa), cv(kappa)), v=(pairs(1 + Mlen), pairs(1 + Mlen)))
+    linb2x = mlin.LinB2X(cm_g=cv(kappa), ro=[(g.fq(), g.fq()) for _ in range(rounds)], vo=pairs(1 + Mlen))
+    return plus.PlusProof(linb2x=linb2x, lproof=lproof, cmproof=cmp, dproof=dproof)
+
+
+@pytest.mark.parametrize("name", ["frog", "stark"])
+def test_random_plus_proof_bytes_match_jax(name):
+    """A hand-built PlusProof: the port's writer gives the JAX writer's
+    bytes for the same values, and both readers read them back to bytes
+    the port's writer gives again."""
+    ring, jring = tget_ring(name), get_ring(name)
+    proof = _rand_plus_proof(_Rand(ring, 23), (tpsc, tr1cs, tsetchk, trgchk, tcm, tdecomp, tmlin, tplus))
+    jproof = _rand_plus_proof(_Rand(ring, 23), (jpsc, jr1cs, jsetchk, jrgchk, jcm, jdecomp, jmlin, jplus))
+    blob = ser.serialize_plus_proof(ring, proof)
+    assert blob == jser.serialize_plus_proof(jring, jproof)
+    assert blob[:12] == ser.MAGIC + b"PLUS"
+    assert ser.deserialize_plus_proof(ring, blob) == proof
+    assert ser.serialize_plus_proof(ring, jser.deserialize_plus_proof(jring, blob)) == blob
+    with pytest.raises(ser.SerializationError):
+        ser.deserialize_plus_proof(ring, blob[:8] + b"PLUZ" + blob[12:])
 
 
 def test_bad_magic_raises():
