@@ -12,11 +12,10 @@ Ajtai seed 7 on the standard path (the port's rule must choose it there):
   babybear    DP_BABYBEAR    kappa 6   params.check_ring_modulus_128_bits_security
   stark       DP_STARK_E2E   kappa 17  accepts at wit_len 4096
 
-Frog's fold runs its counted prove only (no timed prove): it is there so
-that the kernels run at its shapes (nl 2, e 4, d 16) on a path. BabyBear's
-and Stark's run only their counted prove too (Stark's profiled prove
-follows), and Goldilocks one timed prove, to leave room in the time limit
-for phases 3c and 3d.
+Each fold runs its counted prove only (no timed prove; Stark's profiled
+prove follows), to leave room in the time limit for phases 3b-4; Frog's
+is there so that the kernels run at its shapes (nl 2, e 4, d 16) on a
+path.
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -36,8 +35,12 @@ Phases (any failure raises and the script exits non-zero):
      kappa, n = wit_len L, Nb = K - 1, for every ring, for phase 3c's
      preset and for phase 3d's wit_len 32768: five kernel A launches, one
      kernel B launch with nsl 5): equal to ``commit_batch_cm`` (the
-     commit kernel) and, at bench.py's shape, to the plain byte-plane
-     route (``mxu.ajtai_commit_cm``); the Hopper dot, the mma.sync dot and
+     Hopper commit kernel) and, at bench.py's shape, to the plain byte-plane
+     route (``mxu.ajtai_commit_cm``); the Hopper commit kernel
+     (``commit_sm90_kernel.cu``) equal to the first commit kernel
+     (``commit_kernel.cu``, off every path) and, at bench.py's shapes and
+     two slices, to the plain commit, the three (and the route) timed in
+     turns and its two passes timed apart (``commit_turns``); the Hopper dot, the mma.sync dot and
      kernel B each equal to their plain versions, kernel B also to the
      item-per-thread kernel ``plane_epilogue_kernel.cu`` (off the path);
      ms and commits/s of both routes; the Hopper dot's ms (twice) beside
@@ -62,7 +65,9 @@ Phases (any failure raises and the script exits non-zero):
    SIMT CRT kernel (``crt_kernel.cu``, off the main path), timed beside it
    in the same call, with ``torch._int_mm`` of signed operands at the conv
    dot's M x K x columns as a yardstick of the dot half (not the same
-   function); the commit kernel at (kappa, n) with Nb = K - 1 and Nb = 1.
+   function); the Hopper commit kernel at (kappa, n) with Nb = K - 1 and
+   Nb = 1 against the plain commit, the first commit kernel and the
+   byte-plane route (``commit_turns``: all timed in turns, its passes apart).
    Exact equality (all values are integers mod q). The plain commit runs
    in chunks of n added with ``mo.add`` (the same function; Stark's full
    product would need tens of GB). Print each kernel's median ms, the
@@ -72,18 +77,19 @@ Phases (any failure raises and the script exits non-zero):
    card's rate for their type: for the tensor-core CRT the byte products
    the function needs (d^2 (4 nl)^2 per element, two operations each) at
    the int8 tensor-core rate, with the lane floor (8 B a limb, the int64
-   lanes) beside it; for the SIMT CRT and the commit kernel the 32-bit
+   lanes) beside it; for the SIMT CRT and the commit kernels the 32-bit
    multiply-adds (two per 32x32 -> 64 limb product, nl^2 limb products per
-   F_q product) at the card's 32-bit rate outside the tensor cores.
+   F_q product) at the card's 32-bit rate outside the tensor cores (the
+   commit kernels' lane floor beside it).
 3. For each ring's fold: one prove with the launch counts reset just before
    it (the tensor-core CRT 2K + 1, the Hopper dot 2 and the diagonal
    epilogue 2 launches per prove, and no other kernel: the SIMT CRT, the
-   item-per-thread epilogue and the commit kernel 0; checked), timing the
+   item-per-thread epilogue and both commit kernels 0; checked), timing the
    host
    transcript sponge; the port's verifier must accept its proof and the
    folded witness must open the folded commitment; then the timed proves,
    which must give the same proof; one decomposition batch committed by
-   the commit kernel must give the proof's batch commitments; the tests'
+   the Hopper commit kernel must give the proof's batch commitments; the tests'
    small fixture folded on the card must give the same proof and folded
    accumulator bytes (``serialization.serialize_proof`` /
    ``serialize_lcccs``) as on the CPU, for Goldilocks over a two-step
@@ -112,11 +118,10 @@ Phases (any failure raises and the script exits non-zero):
    folding sumcheck) on the fold phase's instance: one counted prove
    (the tensor-core CRT 2K + 1 = 9, the Hopper dot 2, the diagonal
    epilogue 2, nothing else), verified, w0 opens, prove s and peak
-   recorded; then the tests' small fixture folded on the card at
-   DP_GOLDILOCKS_B16 (verified, w0 opens, its proof and accumulator bytes
-   equal to the CPU's fold). DP_STARK_FOLDING's small fold is left out
-   (140.9 s on the card; its bytes are held against the JAX prover by a
-   slow-marked CPU test).
+   recorded. The small fixtures at DP_GOLDILOCKS_B16 (62 s of card and
+   CPU) and DP_STARK_FOLDING (140.9 s on the card) are left out for the
+   time limit (PERF.md section 4; slow-marked CPU tests hold their bytes
+   against the JAX prover).
 3d. Big m: the fold phase's Goldilocks instance forced onto the big-m
    path (``big_m=True, expand_nvars=13``: J = 2 W-tensor rounds), whose
    proof bytes must equal the fold phase's counted prove's, its peak
@@ -130,18 +135,21 @@ Phases (any failure raises and the script exits non-zero):
    memory under 90 % of the card's, prove s, verify s, peak and the
    memory held at its start recorded.
 4. LatticeFold+ (``latticefold_torch.plus``) on Frog; every prove is
-   counted and must launch the tensor-core CRT L + 3 and the commit kernel
-   2L + 1 times for L folded instances, and nothing else (``ComR1CS.new``:
-   2 and 1); each records prove s, the host seconds in the sponge, in the
+   counted and must launch the tensor-core CRT L + 3 and the Hopper commit
+   kernel 2L + 1 times for L folded instances, and nothing else (the first
+   commit kernel 0; ``ComR1CS.new``: 2 and 1); each records prove s, the
+   host seconds in the sponge, in the
    subprotocols and in the costliest host loops (t(z), the split into
    tau, comh), and peak device memory:
    4a. The JAX package's bench at its TPU defaults (``PLUS_BENCH``: n
        2^15, k 2, kappa 2, the identity R1CS, z all ones, Ajtai seed 7):
-       the commit kernel against the plain commit at kappa 2, n 2^15 and
-       Nb 1, 2, 3 and 32 (the path's commit shapes; the CRT's shapes are
-       the Frog fold's, held in phase 2), ``commit_batch_fused`` (kernels
-       A and B, off this path) against the commit kernel at the same
-       shapes, then one prove (L = 1), the port's verifier on a fresh
+       the Hopper commit kernel against the plain commit, the first commit
+       kernel and the byte-plane route at kappa 2, n 2^15 and Nb 1, 2, 3
+       and 32 (the path's commit shapes; the CRT's shapes are the Frog
+       fold's, held in phase 2), all timed in turns, its passes apart;
+       ``commit_batch_fused`` (kernels A and B, off this path) counted and
+       against the Hopper commit kernel at the same shapes, then one prove
+       (L = 1), the port's verifier on a fresh
        transcript, verify s and proof bytes (raw and zlib).
    4b. The reference's accumulation test (``PLUS_MULTI``: n 2^15, k 4,
        kappa 1): the same kernel checks at Nb 1, 2, 3 and 64, then 3
@@ -152,9 +160,11 @@ Phases (any failure raises and the script exits non-zero):
        the card (verified) and on the CPU: equal ``serialize_plus_proof``
        bytes, whose SHA-256 is the JAX prover's (``PLUS_SMALL_SHA256``).
 5. Print the ``kernels`` JSON line (one entry per kernel and fold path, the
-   SIMT CRT, the item-per-thread epilogue and the commit kernel marked off
-   the fold paths, the CRT and the commit kernel for 4a and 4b (4b with
-   round 2's launches), and per kernel, mode and shape of phase 1b), then
+   SIMT CRT, the item-per-thread epilogue and both commit kernels marked
+   off the fold paths, the CRT and both commit kernels for 4a and 4b (4b
+   with round 2's launches; the first commit kernel at 0), per kernel, mode
+   and shape of phase 1b, and both commit kernels at bench.py's shapes and
+   two slices), then
    the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -188,7 +198,7 @@ WIT_LEN = 4096
 X_LEN = 1
 # ring -> (preset, kappa, timed proves after the counted one); in this order
 PATHS = {
-    "goldilocks": ("DP_GOLDILOCKS", 9, 1),
+    "goldilocks": ("DP_GOLDILOCKS", 9, 0),
     "frog": ("DP_FROG", 12, 0),
     "babybear": ("DP_BABYBEAR", 6, 0),
     "stark": ("DP_STARK_E2E", 17, 0),
@@ -201,8 +211,8 @@ CHAIN = ("goldilocks", 9, 3)
 CHAIN_RESUME_AFTER = 2
 SMALL_CHAIN_STEPS = 2
 # phase 3c, moderate b: the fold phase's instance of this ring and kappa at
-# this preset, and the small fixture at it (the small fixture at
-# DP_STARK_FOLDING took 140.9 s on the card, PERF.md section 4: left out)
+# this preset (its small fixtures are left out for the time limit, PERF.md
+# section 4)
 MODERATE_B = ("goldilocks", "DP_GOLDILOCKS_B16", 9)
 # phase 3d, big m: the fold phase's Goldilocks instance forced onto the
 # big-m path with this expand_nvars (J = log m - it W-tensor rounds), then
@@ -397,37 +407,87 @@ def check_kernels(name, dp, scheme, device, wit_len=WIT_LEN):
     results = check_crt(name, ring, n, device, flush, wit_len)
 
     for Nb, seed in ((dp.K - 1, 3), (1, 4)):
-        results[("commit", f"kappa={scheme.kappa} n={n} Nb={Nb}")] = check_commit(name, scheme, Nb, seed, device,
-                                                                                 flush)
+        shape = f"kappa={scheme.kappa} n={n} Nb={Nb}"
+        results[("commit_sm90", shape)], results[("commit", shape)] = check_commit(name, scheme, Nb, seed, device,
+                                                                                   flush)
     del flush
     torch.cuda.empty_cache()
     return results
 
 
-def check_commit(name, scheme, Nb, seed, device, flush):
-    """The commit kernel against the plain commit on a seeded batch of Nb
-    witnesses at the scheme's (kappa, n), both timed. Returns the record."""
+def commit_turns(label, scheme, f, fcm, flush):
+    """The Hopper commit kernel (``mxu._commit_sm90``) on a batch given both
+    ways (f n-major, fcm component-major in ``plane_commit.empty_batch``
+    storage): equal limb for limb to the first commit kernel
+    (``mxu._commit_kernel``) and to the byte-plane route
+    (``commit_batch_fused``); the three timed in turns with the L2 flushed,
+    and the new kernel's two passes timed apart on its own partials. Bound:
+    the function's bytes at 4 B a word (or its 32-bit multiply-adds); lane
+    floor: the same at 8 B a word, the int64 lanes the kernels read.
+    Returns the record (``ms`` the new kernel's)."""
     import torch
 
     from latticefold_torch.rings import mxu
 
     ring, kappa, n = scheme.ring, scheme.kappa, scheme.n
-    f = rand_field(ring, (n, Nb, ring.ncomp, ring.e), seed, device)
-    got = mxu._commit_kernel(ring, scheme.matrix, f)
+    Nb = f.shape[1]
+    got, partial = mxu._commit_sm90(ring, scheme.matrix, f)
+    old = mxu._commit_kernel(ring, scheme.matrix, f)
+    torch.cuda.synchronize()
+    err = int((got != old).sum().item())
+    if err:
+        raise AssertionError(f"commit_sm90 [{label}] (Nb={Nb}): {err} limbs differ from the first commit kernel's")
+    err = int((got != scheme.commit_batch_fused(fcm)).sum().item())
+    if err:
+        raise AssertionError(f"commit_sm90 [{label}] (Nb={Nb}): {err} limbs differ from the byte-plane route's")
+    t = time_in_turns({"new": lambda: mxu._commit_sm90(ring, scheme.matrix, f, partial=partial),
+                       "old": lambda: mxu._commit_kernel(ring, scheme.matrix, f),
+                       "route": lambda: scheme.commit_batch_fused(fcm)}, 10, flush)
+    p1 = time_ms(lambda: mxu._commit_sm90(ring, scheme.matrix, f, mode=1, partial=partial), 10, flush)
+    p2 = time_ms(lambda: mxu._commit_sm90(ring, scheme.matrix, f, mode=2, partial=partial), 10, flush)
+    n_values = (kappa * n + n * Nb + kappa * Nb) * ring.ncomp * ring.e
+    n_products = kappa * Nb * ring.ncomp * n * ring.e**2
+    b = bound(ring, n_values, n_products)
+    lane = bound(ring, 2 * n_values, n_products)
+    plan = mxu.commit_sm90_plan(ring, kappa, n, Nb, mxu._sms(f.device))
+    rec = dict(ms=t["new"], old_ms=t["old"], route_ms=t["route"], pass1_ms=p1, pass2_ms=p2,
+               lane_floor_ms=lane["bound_ms"], plan=plan._asdict(), max_abs_err=0, **b)
+    log(f"[kernels] commit_sm90[{label}] kappa={kappa} n={n} Nb={Nb}: {t['new']:.4f} ms (passes {p1:.4f} + "
+        f"{p2:.4f} alone), first commit kernel {t['old']:.4f} ms, byte-plane route {t['route']:.4f} ms (in turns); "
+        f"bound {b['bound_ms']:.5f} ms ({b['bound_by']}), lane floor {lane['bound_ms']:.5f} ms; plan {tuple(plan)}; "
+        f"equal to both")
+    return rec
+
+
+def check_commit(name, scheme, Nb, seed, device, flush):
+    """The Hopper commit kernel against the plain commit on a seeded batch of
+    Nb witnesses at the scheme's (kappa, n), then ``commit_turns`` (the
+    first commit kernel and the byte-plane route, in turns). Returns
+    (the new kernel's record, the first kernel's)."""
+    import torch
+
+    from latticefold_torch.rings import mxu
+    from latticefold_torch.rings import plane_commit as pc
+
+    ring = scheme.ring
+    f = rand_field(ring, (scheme.n, Nb, ring.ncomp, ring.e), seed, device)
+    got = mxu.ajtai_commit(ring, scheme.matrix, f)
     want = commit_plain(ring, scheme.matrix, f)
     torch.cuda.synchronize()
     err = int((got != want).sum().item())
     if err:
-        raise AssertionError(f"commit kernel [{name}] (Nb={Nb}): {err} limbs differ from the plain version")
+        raise AssertionError(f"commit_sm90 [{name}] (Nb={Nb}): {err} limbs differ from the plain version")
     del want, got
-    ms = time_ms(lambda: mxu._commit_kernel(ring, scheme.matrix, f), 10, flush)
     plain_ms = time_ms(lambda: commit_plain(ring, scheme.matrix, f), 1, flush)
-    b = bound(ring, (kappa * n + n * Nb + kappa * Nb) * ring.ncomp * ring.e,
-              kappa * Nb * ring.ncomp * n * ring.e**2)
-    log(f"[kernels] commit_kernel[{name}] kappa={kappa} n={n} Nb={Nb}: {ms:.4f} ms  "
-        f"plain {plain_ms:.2f} ms  bound {b['bound_ms']:.4f} ms ({b['bound_by']}; bytes "
-        f"{b['bytes_ms']:.4f}, {b['mad32']:.3e} mad32 {b['ops_ms']:.4f})  exact")
-    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=0, **b)
+    fcm = pc.empty_batch(ring, scheme.n, Nb, device)
+    fcm.copy_(f.permute(2, 0, 3, 1, 4))
+    rec = commit_turns(name, scheme, f, fcm, flush)
+    rec["plain_ms"] = plain_ms
+    old = {k: v for k, v in rec.items() if k in ("bound_ms", "bound_by", "bytes_ms", "ops_ms", "mad32", "plain_ms",
+                                               "max_abs_err", "lane_floor_ms")}
+    old.update(ms=rec["old_ms"], new_ms=rec["ms"])
+    del f, fcm
+    return rec, old
 
 
 @contextlib.contextmanager
@@ -459,14 +519,13 @@ def sponge_timer(sponge_cls, acc: dict):
             setattr(sponge_cls, k, fn)
 
 
-def small_fold(name, device, steps=1, preset=None, verify=False):
+def small_fold(name, device, steps=1):
     """The tests' small fixture (kappa = 4, seed 7) for ``name`` folded
-    ``steps`` times on ``device`` (each step folds the fresh instance into
-    the accumulator of the one before, on a fresh transcript) at ``preset``
-    (default: the fold phase's); returns each step's proof bytes and the
-    last folded accumulator's bytes (``serialization.serialize_proof`` /
-    ``serialize_lcccs``). With ``verify``, each step's proof must pass the
-    port's verifier and its folded witness must open its commitment."""
+    ``steps`` times on ``device`` at the fold phase's preset (each step
+    folds the fresh instance into the accumulator of the one before, on a
+    fresh transcript); returns each step's proof bytes and the last folded
+    accumulator's bytes (``serialization.serialize_proof`` /
+    ``serialize_lcccs``)."""
     import latticefold_torch.nifs as nifs
     import latticefold_torch.nifs.linearization as linearization
     from latticefold_torch import params, serialization
@@ -477,7 +536,7 @@ def small_fold(name, device, steps=1, preset=None, verify=False):
     from latticefold_torch.rings.construct import get_ring
     from latticefold_torch.transcript import Transcript
 
-    dp = getattr(params, preset or PATHS[name][0])
+    dp = getattr(params, PATHS[name][0])
     ring = get_ring(name)
     ccs = CCS.from_r1cs_padded(ring, get_test_r1cs(ring), W=4, L=dp.L)
     _, x_ccs, w_host = get_test_z_split(ring, 3)
@@ -487,15 +546,8 @@ def small_fold(name, device, steps=1, preset=None, verify=False):
     acc, _ = linearization.prove(cm_i, wit, Transcript(ring), ccs)
     w_acc, proofs = wit, []
     for _ in range(steps):
-        prev = acc
         acc, w_acc, proof = nifs.prove(acc, w_acc, cm_i, wit, Transcript(ring), ccs, scheme, dp)
         proofs.append(serialization.serialize_proof(ring, proof))
-        if verify:
-            folded_v = nifs.verify(prev, cm_i, proof, Transcript(ring), ccs, dp)
-            if (folded_v.r, folded_v.v, folded_v.u, folded_v.cm) != (acc.r, acc.v, acc.u, acc.cm):
-                raise AssertionError(f"small fold [{name} {dp}]: the verifier's accumulator differs")
-            if w_acc.commit(scheme) != acc.cm:
-                raise AssertionError(f"small fold [{name} {dp}]: the folded witness does not open")
     return proofs, serialization.serialize_lcccs(ring, acc)
 
 
@@ -829,10 +881,13 @@ def int_mm_ms(pairs, flush):
     return time_ms(lambda: [torch._int_mm(a, b) for a, b in pairs], 10, flush)
 
 
-def plane_commit_shape(label, name, kappa, n, Nb, seed, wseed, device, flush, with_route_plain):
+def plane_commit_shape(label, name, kappa, n, Nb, seed, wseed, device, flush, with_route_plain,
+                       with_commit_plain=False):
     """Phase 1b at one commit shape: ``commit_batch_fused`` counted and held
-    against ``commit_batch_cm``, kernels A and B against their plain
-    versions, every time. Returns (record, kernels JSON entries)."""
+    against ``commit_batch_cm`` (the Hopper commit kernel), kernels A and B
+    against their plain versions, the Hopper commit kernel against the first
+    (``commit_turns``), every time. Returns (record, kernels JSON entries:
+    kernels A and B, and with ``with_commit_plain`` both commit kernels)."""
     import torch
 
     from latticefold_torch.commitment import AjtaiScheme
@@ -859,8 +914,18 @@ def plane_commit_shape(label, name, kappa, n, Nb, seed, wseed, device, flush, wi
             raise AssertionError(f"commit_batch_fused [{label}] differs from the plain byte-plane route")
         rec["route_plain_ms"] = time_ms(lambda: mxu.ajtai_commit_cm(ring, planes, fcm), 2, flush)
         del planes
+    # the Hopper commit kernel (commit_batch_cm's) against the first commit
+    # kernel and the route, in turns; where phase 1b emits its entries, also
+    # against the plain commit
+    f = fcm.permute(1, 3, 0, 2, 4).contiguous()
+    cm = rec["commit_sm90"] = commit_turns(label, scheme, f, fcm, flush)
+    if with_commit_plain:
+        if (got != commit_plain(ring, scheme.matrix, f)).any():
+            raise AssertionError(f"commit_sm90 [{label}] differs from the plain commit")
+        cm["plain_ms"] = time_ms(lambda: commit_plain(ring, scheme.matrix, f), 1, flush)
+    del f
     rec["fused_ms"] = time_ms(lambda: scheme.commit_batch_fused(fcm), 20, flush)
-    rec["cm_ms"] = time_ms(lambda: scheme.commit_batch_cm(fcm), 10, flush)
+    rec["cm_ms"] = cm["ms"]
     rec["fused_commits_per_s"] = Nb / (rec["fused_ms"] / 1e3)
     rec["cm_commits_per_s"] = Nb / (rec["cm_ms"] / 1e3)
     rows = pre.rows
@@ -920,7 +985,10 @@ def plane_commit_shape(label, name, kappa, n, Nb, seed, wseed, device, flush, wi
         f"{kern_b['items_ms']:.4f}; bound {kern_b['bound_ms']:.4f}, plain {kern_b['plain_ms']:.2f}); "
         f"launches {launches}; "
         f"equal to the commit kernel{' and the plain route' if with_route_plain else ''}")
-    return rec, route_entries(label, rec, launches)
+    entries = route_entries(label, rec, launches)
+    if with_commit_plain:
+        entries += commit_entries(label, rec, launches)
+    return rec, entries
 
 
 ROUTE_KERNELS = ("plane_dot_sm90", "plane_epilogue_diag", "plane_epilogue")  # the last off the path
@@ -944,6 +1012,23 @@ def route_entries(label, rec, launches):
     return entries
 
 
+def commit_entries(label, rec, launches):
+    """The ``kernels`` JSON entries of the Hopper commit kernel and the first
+    one at a phase 1b shape (neither on the path that phase counts: the
+    route's), from its record."""
+    cm = rec["commit_sm90"]
+    shape = f"{rec['ring']} kappa={rec['kappa']} n={rec['n']} Nb={rec['Nb']}"
+    common = dict(max_abs_err=0, plain_ms=cm["plain_ms"], bound_ms=cm["bound_ms"], bound_by=cm["bound_by"],
+                  library_ms=None, lane_floor_ms=cm["lane_floor_ms"], on_main_path=False, shape=shape)
+    return [
+        dict(KERNEL_INFO["commit_sm90"], **common, name=f"{KERNEL_INFO['commit_sm90']['name']}[{label}]",
+             launches=launches.get("commit_sm90", 0), ms=cm["ms"], old_ms=cm["old_ms"], route_ms=cm["route_ms"],
+             pass1_ms=cm["pass1_ms"], pass2_ms=cm["pass2_ms"]),
+        dict(KERNEL_INFO["commit"], **common, name=f"{KERNEL_INFO['commit']['name']}[{label}]",
+             launches=launches.get("commit", 0), ms=cm["old_ms"], new_ms=cm["ms"]),
+    ]
+
+
 def check_plane_commit(device):
     """Phase 1b, the batch commit: bench.py's shape, then each ring's fold
     commit shape."""
@@ -955,14 +1040,14 @@ def check_plane_commit(device):
     record, entries = {}, []
     name, kappa, n, seed, batches = BENCH_COMMIT
     for Nb in batches:
-        rec, ent = plane_commit_shape(f"bench b{Nb}", name, kappa, n, Nb, seed, 100 + Nb, device, flush, True)
+        rec, ent = plane_commit_shape(f"bench b{Nb}", name, kappa, n, Nb, seed, 100 + Nb, device, flush, True, True)
         record[f"bench b{Nb}"] = rec
         entries += ent
         torch.cuda.empty_cache()
     # two slices: bench.py's kappa and Nb 16 at n 2^16 (two kernel A
     # launches, one kernel B launch with nsl 2)
     name, kappa, n, Nb = TWO_SLICE_COMMIT
-    rec, ent = plane_commit_shape("two-slice b16", name, kappa, n, Nb, seed, 200, device, flush, False)
+    rec, ent = plane_commit_shape("two-slice b16", name, kappa, n, Nb, seed, 200, device, flush, False, True)
     record["two-slice b16"] = rec
     entries += ent
     torch.cuda.empty_cache()
@@ -1282,6 +1367,10 @@ KERNEL_INFO = {
         name="crt_kernel", route="cuda", source="latticefold_torch/csrc/crt_kernel.cu",
         replaces="latticefold_tpu/rings/pallas_crt.py:105",
     ),
+    "commit_sm90": dict(
+        name="commit_sm90_kernel", route="cuda", source="latticefold_torch/csrc/commit_sm90_kernel.cu",
+        replaces="latticefold_tpu/rings/pallas_commit.py:136,179",
+    ),
     "commit": dict(
         name="commit_kernel", route="cuda", source="latticefold_torch/csrc/commit_kernel.cu",
         replaces="latticefold_tpu/rings/pallas_commit.py:136,179",
@@ -1393,7 +1482,7 @@ def kernel_entries(label, name, n, Nb, kres, launches, route_rec, kappa=None):
         kappa = route_rec["kappa"]
         entries = route_entries(label, route_rec, launches)
     for key, main in (("crt_tc", f"crt N={n}"), ("crt", f"crt N={n}"),
-                      ("commit", f"kappa={kappa} n={n} Nb={Nb}")):
+                      ("commit_sm90", f"kappa={kappa} n={n} Nb={Nb}"), ("commit", f"kappa={kappa} n={n} Nb={Nb}")):
         if (key, main) not in kres:
             continue
         r = kres[(key, main)]
@@ -1403,11 +1492,15 @@ def kernel_entries(label, name, n, Nb, kres, launches, route_rec, kappa=None):
         if key == "crt_tc":
             extra = dict(simt_ms=r["simt_ms"], lane_floor_ms=r["lane_floor"]["bound_ms"],
                          conv_plain_ms=r["conv_plain_ms"], int_mm_dot_ms=r["int_mm_ms"])
+        elif key == "commit_sm90":
+            extra = {k: r[k] for k in ("lane_floor_ms", "old_ms", "route_ms", "pass1_ms", "pass2_ms")}
+        elif key == "commit":
+            extra = dict(lane_floor_ms=r["lane_floor_ms"], new_ms=r["new_ms"])
         entries.append(dict(
             info, ring=name, launches=launches.get(key, 0), max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=None, shape=main, on_main_path=launches.get(key, 0) > 0, **extra,
-            other_shapes={s: {k: v for k, v in rec.items() if k != "lane_floor"}
+            other_shapes={s: {k: v for k, v in rec.items() if k not in ("lane_floor", "plan")}
                           for (k, s), rec in kres.items() if k == key and s != main},
         ))
     return entries
@@ -1416,11 +1509,9 @@ def kernel_entries(label, name, n, Nb, kres, launches, route_rec, kappa=None):
 def run_moderate_b_phase(device, kres, plane_rec):
     """Phase 3c: the fold phase's instance at MODERATE_B's preset (one
     counted prove: the tensor-core CRT 2K + 1, the Hopper dot 2 and the
-    diagonal epilogue 2 launches, nothing else; verified, w0 opens), then
-    the small fixture at the same preset folded on the card (verified, w0
-    opens) and equal as bytes to the CPU's fold. ``kres``: phase 2's
-    records of the ring (the CRT shapes are the fold phase's). Returns
-    (record, kernels JSON entries)."""
+    diagonal epilogue 2 launches, nothing else; verified, w0 opens).
+    ``kres``: phase 2's records of the ring (the CRT shapes are the fold
+    phase's). Returns (record, kernels JSON entries)."""
     import torch
 
     from latticefold_torch import params
@@ -1436,16 +1527,7 @@ def run_moderate_b_phase(device, kres, plane_rec):
     entries = kernel_entries(label, name, scheme.n, dp.K - 1, kres, fold["launches"], plane_rec[f"{label} fold"])
     del scheme
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    card = small_fold(name, device, 1, preset, verify=True)
-    card_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    if card != small_fold(name, torch.device("cpu"), 1, preset):
-        raise AssertionError(f"small fold [{label}]: the card's proof or accumulator bytes differ from the CPU's")
-    cpu_s = time.perf_counter() - t0
-    log(f"[fold {label}] small fixture on the card in {card_s:.1f} s: verified, w0 opens; its proof and "
-        f"accumulator bytes equal the CPU's ({cpu_s:.1f} s there; {len(card[0][0])} B of proof)")
-    return dict(fold=fold, small=dict(card_s=card_s, cpu_s=cpu_s, proof_bytes=len(card[0][0]))), entries
+    return dict(fold=fold), entries
 
 
 def run_bigm_phase(device, std_fold, std_proof, kres_std, plane_rec):
@@ -1518,8 +1600,9 @@ def plus_launches(L: int) -> dict:
     """The launches of one ``PlusProver.prove`` that folds L instances: an
     ICRT in each ``RgInstance.from_f`` and the ICRT and two CRTs of
     ``decompose`` on the tensor-core CRT; two batch commits in each
-    ``from_f`` and one in ``decompose`` on the commit kernel; nothing else."""
-    return {"crt_tc": L + 3, "commit": 2 * L + 1}
+    ``from_f`` and one in ``decompose`` on the Hopper commit kernel; nothing
+    else (the first commit kernel 0)."""
+    return {"crt_tc": L + 3, "commit_sm90": 2 * L + 1}
 
 
 def plus_setup(n, k, kappa, B, device):
@@ -1528,7 +1611,7 @@ def plus_setup(n, k, kappa, B, device):
     identity R1CS of m = n / k constraints through
     ``r1cs_decomposed_square``, z all ones, Ajtai seed 7. On the card
     ``ComR1CS.new`` is counted: crt_tc 2 (the ICRT of z, the CRT of f) and
-    commit 1. Returns (scheme, ComR1CS, PlusParameters)."""
+    commit_sm90 1. Returns (scheme, ComR1CS, PlusParameters)."""
     import math
 
     from latticefold_torch.arith.sparse import SparseMatrix
@@ -1550,7 +1633,7 @@ def plus_setup(n, k, kappa, B, device):
     def new():
         return ComR1CS.new(ring, list(mats), z, 1, B, k, scheme)
 
-    c = counted("ComR1CS.new", new, {"crt_tc": 2, "commit": 1})[0] if device.type == "cuda" else new()
+    c = counted("ComR1CS.new", new, {"crt_tc": 2, "commit_sm90": 1})[0] if device.type == "cuda" else new()
     return scheme, c, PlusParameters(lin=LinParameters(kappa=kappa, decomp=dparams), B=B)
 
 
@@ -1621,10 +1704,11 @@ def plus_round(label, prover, c, L, device):
     return proof, rec
 
 
-def plane_route_check(label, scheme, Nb, seed, device, flush):
+def plane_route_check(label, scheme, Nb, seed, device, rec):
     """The byte-plane batch commit (kernels A and B, ``commit_batch_fused``)
-    against the commit kernel (``commit_batch_cm``) on a seeded batch of Nb
-    witnesses at the scheme's (kappa, n), counted and both timed. Not on the
+    counted, and held against the Hopper commit kernel (``commit_batch_cm``)
+    on a seeded batch of Nb witnesses at the scheme's (kappa, n); both
+    routes' times are ``rec``'s (``commit_turns``, in turns). Not on the
     LatticeFold+ path: the cross-check of the route at its shapes."""
     from latticefold_torch.rings import plane_commit as pc
 
@@ -1636,25 +1720,26 @@ def plane_route_check(label, scheme, Nb, seed, device, flush):
     err = int((got != scheme.commit_batch_cm(fcm)).sum().item())
     if err:
         raise AssertionError(f"commit_batch_fused [{label} Nb={Nb}]: {err} limbs differ from the commit kernel's")
-    rec = dict(Nb=Nb, launches=launches, fused_ms=time_ms(lambda: scheme.commit_batch_fused(fcm), 10, flush),
-               cm_ms=time_ms(lambda: scheme.commit_batch_cm(fcm), 10, flush))
-    log(f"[plus {label}] commit_batch_fused kappa={scheme.kappa} n={n} Nb={Nb}: equal to the commit kernel; "
-        f"{rec['fused_ms']:.4f} ms against the commit kernel's {rec['cm_ms']:.4f} ms; launches {launches}")
-    return rec
+    out = dict(Nb=Nb, launches=launches, fused_ms=rec["route_ms"], cm_ms=rec["ms"], old_ms=rec["old_ms"])
+    log(f"[plus {label}] commit_batch_fused kappa={scheme.kappa} n={n} Nb={Nb}: equal to the Hopper commit kernel; "
+        f"{out['fused_ms']:.4f} ms against its {out['cm_ms']:.4f} ms (the first commit kernel "
+        f"{out['old_ms']:.4f} ms); launches {launches}")
+    return out
 
 
 def plus_kernel_checks(label, scheme, Nbs, device):
-    """The commit kernel against the plain commit, and the byte-plane route
-    against the commit kernel, at the scheme's (kappa, n) and each Nb.
-    Returns ({(kernel, shape): numbers}, {Nb: route record})."""
+    """The Hopper commit kernel against the plain commit, the first commit
+    kernel and the byte-plane route, and the route counted and against the
+    Hopper kernel, at the scheme's (kappa, n) and each Nb. Returns
+    ({(kernel, shape): numbers}, {Nb: route record})."""
     import torch
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
     kres, route = {}, {}
     for i, Nb in enumerate(Nbs):
-        kres[("commit", f"kappa={scheme.kappa} n={scheme.n} Nb={Nb}")] = check_commit(
-            f"{label}", scheme, Nb, 20 + i, device, flush)
-        route[f"Nb={Nb}"] = plane_route_check(label, scheme, Nb, 40 + i, device, flush)
+        shape = f"kappa={scheme.kappa} n={scheme.n} Nb={Nb}"
+        kres[("commit_sm90", shape)], kres[("commit", shape)] = check_commit(label, scheme, Nb, 20 + i, device, flush)
+        route[f"Nb={Nb}"] = plane_route_check(label, scheme, Nb, 40 + i, device, kres[("commit_sm90", shape)])
     del flush
     torch.cuda.empty_cache()
     return kres, route

@@ -17,7 +17,9 @@ Kernels (``csrc/``, built at first use by ``cuda.py``):
                               lane per patch diagonal             (rings/plane_commit.py)
     plane_epilogue_kernel.cu  the same, a thread per item, the former
     plane_dot_kernel.cu       byte-plane dot on mma.sync, probes  (rings/plane_commit.py)
-    commit_kernel.cu          Ajtai commitment contraction        (rings/mxu.py)
+    commit_sm90_kernel.cu     Ajtai commitment contraction, staged
+                              whole rows and lazy lane sums       (rings/mxu.py)
+    commit_kernel.cu          the same, a thread per pair, the former
     int_gemm_kernel.cu, probe_kernels.cu  the TPU probes          (rings/plane_probes.py)
 
 Public surface:

@@ -35,6 +35,7 @@ SOURCES = {
     "crt": "crt_kernel.cu",
     "crt_tc": "crt_tc_kernel.cu",
     "commit": "commit_kernel.cu",
+    "commit_sm90": "commit_sm90_kernel.cu",
     "plane_dot": "plane_dot_kernel.cu",
     "plane_dot_sm90": "plane_dot_sm90_kernel.cu",
     "plane_epilogue": "plane_epilogue_kernel.cu",
@@ -50,6 +51,7 @@ _ARGTYPES = {
     "crt": ("crt", "lf_crt_apply", [_P] * 3 + [_I] * 3 + [_U64P, _P]),
     "crt_tc": ("crt_tc", "lf_crt_tc", [_P] * 3 + [_I] * 3 + [_U64P, _P]),
     "commit": ("commit", "lf_ajtai_commit", [_P] * 5 + [_I] * 9 + [_U64P, _P]),
+    "commit_sm90": ("commit_sm90", "lf_commit_sm90", [_P] * 5 + [_I] * 17 + [_U64P, _P]),
     "plane_dot": ("plane_dot", "lf_plane_dot", [_P, _LL, _LL, _P, _LL, _LL, _I, _P] + [_I] * 8 + [_P]),
     "plane_dot_sm90": ("plane_dot_sm90", "lf_plane_dot_sm90", [_P, _LL, _LL, _P, _LL, _LL, _I, _P] + [_I] * 6 + [_P]),
     "plane_epilogue": ("plane_epilogue", "lf_plane_epilogue", [_P] * 4 + [_I] * 11 + [_U64P, _P]),

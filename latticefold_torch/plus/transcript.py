@@ -32,6 +32,16 @@ class PlusTranscript:
         for e in elts:
             self.absorb_coeffs(e)
 
+    def absorb_scalar(self, v: int):
+        """absorb_field_element: the constant polynomial [v, 0, .., 0]
+        (latticefold/src/transcript.rs:21-23 with From::from)."""
+        self.absorb_coeffs(cr.cconst(self.ring, v))
+
+    def absorb_tag(self, tag: bytes):
+        """squeeze_challenges' name absorb (plus transcript.rs:62-64): the
+        tag's big-endian integer mod q, as a scalar."""
+        self.absorb_scalar(int.from_bytes(tag, "big") % self.ring.q)
+
     # -- challenges ---------------------------------------------------------
     def get_challenge(self) -> int:
         """Squeeze one base-field element, re-absorb it, return it as an int."""
@@ -52,6 +62,9 @@ class PlusTranscript:
         u = 1 << (lam // ring.d)
         bs = self.squeeze_bytes(ring.d)
         return [((b % u) - u // 2) % ring.q for b in bs]
+
+    def short_challenges(self, n: int, lam: int = 128) -> List[List[int]]:
+        return [self.short_challenge(lam) for _ in range(n)]
 
     # -- sponge state ---------------------------------------------------------
     def snapshot_state(self):

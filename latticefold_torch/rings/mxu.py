@@ -3,9 +3,11 @@
 cm[k, b, c] = sum_n A[k, n, c] *_K f[n, b, c]  -- the function the JAX
 package computes with ``rings/mxu.py:ajtai_commit`` and with its fused
 Pallas kernel ``rings/pallas_commit.py``. On a CUDA tensor ``ajtai_commit``
-launches the hand-written kernel ``csrc/commit_kernel.cu`` for every width
-n and batch; on a CPU tensor it runs the plain version beside it. Nothing
-falls back from one to the other.
+launches the hand-written Hopper kernel ``csrc/commit_sm90_kernel.cu`` for
+every width n and batch; on a CPU tensor it runs the plain version beside
+it. Nothing falls back from one to the other. ``_commit_kernel``
+(``csrc/commit_kernel.cu``, the first design) is the new kernel's in-call
+baseline, launched by no path.
 
 The second half is the JAX package's byte-plane route in plain torch
 (``to_planes`` ... ``ajtai_commit_cm``): the reference that the kernels of
@@ -13,6 +15,9 @@ The second half is the JAX package's byte-plane route in plain torch
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -34,7 +39,7 @@ def ajtai_commit_plain(ring: Ring, matrix, f):
 
 
 def commit_plan(ring: Ring, kappa: int, n: int, Nb: int, sms: int):
-    """(nchunks, chunk, TN): how pass 1 splits the sum over n across blocks
+    """(nchunks, chunk, TN) of ``_commit_kernel``: how pass 1 splits the sum over n across blocks
     of a card with ``sms`` SMs and how many n it stages per shared-memory
     tile."""
     elem_bytes = 4 * ring.nl  # an F_q value in shared memory (u32, u64 or 4 x u64)
@@ -48,7 +53,8 @@ def commit_plan(ring: Ring, kappa: int, n: int, Nb: int, sms: int):
 
 
 def _commit_kernel(ring: Ring, matrix, f):
-    """Launch csrc/commit_kernel.cu (both passes) on CUDA tensors. An (nl, e)
+    """Launch csrc/commit_kernel.cu (both passes) on CUDA tensors: the first
+    design, the Hopper kernel's in-call baseline (no path calls it). An (nl, e)
     without a template instance there makes the launcher return an error
     code, which ``cuda.check`` raises."""
     dev = f.device
@@ -58,8 +64,7 @@ def _commit_kernel(ring: Ring, matrix, f):
         raise ValueError(f"witness length {f.shape[0]} != matrix width {n}")
     cuda.require_tensor(matrix, "commit matrix", dev)
     cuda.require_tensor(f, "commit witness", dev)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    nchunks, chunk, tn = commit_plan(ring, kappa, n, Nb, sms)
+    nchunks, chunk, tn = commit_plan(ring, kappa, n, Nb, _sms(dev))
     S = 2 * ring.e - 1
     partial = torch.empty(
         (nchunks, ring.ncomp, kappa * Nb, S, ring.nl), dtype=torch.int64, device=dev
@@ -67,7 +72,7 @@ def _commit_kernel(ring: Ring, matrix, f):
     out = torch.empty(
         (kappa, Nb, ring.ncomp, ring.e, ring.nl), dtype=torch.int64, device=dev
     )
-    red = ops.red_rows(ring, dev)
+    red = _red(ring, dev)
     fn = cuda.kernel("commit")
     code = fn(
         matrix.data_ptr(), f.data_ptr(), 0 if red is None else red.data_ptr(),
@@ -80,12 +85,182 @@ def _commit_kernel(ring: Ring, matrix, f):
     return out
 
 
+# the Hopper kernel's plan (csrc/commit_sm90.cuh)
+_SM90_THREADS = 256       # the most threads of a pass-1 block (cm90::max_threads) ...
+_SM90_WIDE_THREADS = 512  # ... and of a staged one-pair tile of nl 2 or 8
+_SM90_SHARED_THREADS = 320  # the most threads of a block that two can share an SM with (~100 registers)
+_SM90_ALONE = 1.2         # the plan's weight on a block that cannot (chosen on the card, PERF.md section 6)
+_SM90_SMEM = 100 * 1024   # the most staged bytes of a block: two blocks an SM
+_SM90_TN = 64             # the most n rows a stage
+_SM90_BLOCKS_PER_SM = (2, 8)  # pass-1 blocks to aim for on each SM: at least, and where chunks stay long
+_SM90_MIN_STAGES = 4      # stages a chunk keeps when the plan cuts n finer than the least blocks
+_SM90_PARTIAL_SHARE = 16  # partial sums at most 1/16 of the bytes of A and f, past the least blocks
+# (nl, e) -> the register tiles (KT, BT) of (k, b) pairs a thread may own,
+# the first with kappa >= KT and Nb >= BT taken; the instances of
+# commit_sm90_kernel.cu, chosen on the card (PERF.md, section 6). BabyBear
+# and Goldilocks keep (1, 1): e^2 = 81 and 9 products a pair already reuse
+# each loaded value e times, and a second pair's accumulators cost the
+# occupancy that hides the carry chains' latency.
+_SM90_TILES = {(1, 9): ((1, 1),), (2, 3): ((1, 1),), (2, 4): ((2, 1), (1, 1)),
+               (8, 1): ((1, 2), (2, 1), (1, 1))}
+
+
+class CommitPlan(NamedTuple):
+    """How ``csrc/commit_sm90_kernel.cu`` cuts one call: register tile
+    (kt x bt pairs a thread), whether f is read from device memory directly
+    (one tile along k, so each f value has one reader) or staged, pair
+    group (kg x bg tiles a block), lanes a tile, n rows a stage, the chunks
+    of n, and what that makes."""
+
+    kt: int
+    bt: int
+    direct: int
+    kg: int
+    bg: int
+    lanes: int
+    tn: int
+    chunk: int
+    nchunks: int
+    fwarps: int
+    groups: int
+    threads: int
+    smem: int
+
+
+def _pitch_bytes(ring: Ring) -> int:
+    """A staged row of ncomp e nl int64 lanes, in whole 128-byte lines."""
+    return -(-ring.ncomp * ring.e * ring.nl * 8 // 128) * 128
+
+
+@functools.lru_cache(maxsize=None)
+def commit_sm90_plan(ring: Ring, kappa: int, n: int, Nb: int, sms: int) -> CommitPlan:
+    """The Hopper commit kernel's plan for a card with ``sms`` SMs. Of the
+    pair groups that fit a block (ncomp kg bg items of at most
+    ``_SM90_THREADS`` threads, two stage buffers in
+    ``_SM90_SMEM``) it takes
+    the one whose blocks read the fewest rows of A and f (A once per group
+    along b, f once per group along k), weighed by how full its groups
+    are and by whether two blocks share an SM, then the most threads, then
+    the deepest stage; the lanes of an item are the largest power of two that
+    fits the threads, the stage's rows and a warp. The chunks of n make at
+    least 2 blocks an SM, and up to 8 while a chunk keeps
+    ``_SM90_MIN_STAGES`` stages: the more blocks, the shorter the tail of
+    the last wave, and while the partial sums stay under 1/16 of the bytes
+    of A and f. Pass 2 gives an output the fewest warps (up to 8) that
+    leave each thread at most one chunk, or eight warps."""
+    kt, bt = next(t for t in _SM90_TILES[(ring.nl, ring.e)] if kappa >= t[0] and Nb >= t[1])
+    ktiles, btiles = -(-kappa // kt), -(-Nb // bt)
+    direct = int(ktiles == 1)
+    pitch = _pitch_bytes(ring)
+    max_threads = _SM90_WIDE_THREADS if not direct and (kt, bt) == (1, 1) and ring.nl >= 2 else _SM90_THREADS
+    best = None
+    for kg in range(1, ktiles + 1):
+        for bg in range(1, btiles + 1):
+            items = ring.ncomp * kg * bg
+            if items > max_threads:
+                break
+            tn = min(_SM90_TN, _SM90_SMEM // (2 * (kg * kt + (0 if direct else bg * bt)) * pitch))
+            if tn < 1:
+                continue
+            lanes = 1
+            while lanes * 2 <= min(32, tn, max_threads // items):
+                lanes *= 2
+            tn = tn // lanes * lanes
+            kgroups, bgroups = -(-ktiles // kg), -(-btiles // bg)
+            reads = kappa * bgroups + Nb * kgroups
+            # a ragged last group idles part of the card: weigh the reads by
+            # the groups' tiles over the tiles there are; a block of more
+            # than _SM90_SHARED_THREADS runs alone on its SM (registers):
+            # weigh it by _SM90_ALONE
+            cost = reads * kgroups * kg * bgroups * bg / (ktiles * btiles)
+            if items * lanes > _SM90_SHARED_THREADS:
+                cost *= _SM90_ALONE
+            key = (cost, -items * lanes, -tn)
+            if best is None or key < best[0]:
+                best = (key, kg, bg, lanes, tn)
+    if best is None:
+        raise ValueError(f"commit_sm90: no pair group fits a block (ncomp {ring.ncomp}, kappa {kappa}, Nb {Nb})")
+    _, kg, bg, lanes, tn = best
+    groups = -(-ktiles // kg) * -(-btiles // bg)
+    least, most = (-(-b * sms // groups) for b in _SM90_BLOCKS_PER_SM)
+    row_bytes = ring.ncomp * ring.e * ring.nl * 8
+    partial_bytes = ring.ncomp * kappa * Nb * (2 * ring.e - 1) * _acc_words(ring) * 8  # a chunk's
+    cap = (kappa + Nb) * n * row_bytes // (_SM90_PARTIAL_SHARE * partial_bytes)
+    nchunks = max(1, min(n, max(least, min(most, n // (_SM90_MIN_STAGES * tn), cap))))
+    chunk = -(-n // nchunks)
+    nchunks = -(-n // chunk)
+    threads = -(-ring.ncomp * kg * bg * lanes // 32) * 32
+    smem = 2 * (kg * kt + (0 if direct else bg * bt)) * tn * pitch
+    fwarps = 1
+    while fwarps < 8 and 32 * fwarps < nchunks:
+        fwarps *= 2
+    return CommitPlan(kt, bt, direct, kg, bg, lanes, tn, chunk, nchunks, fwarps, groups, threads, smem)
+
+
+def _acc_words(ring: Ring) -> int:
+    """u64 words of the field's lazy accumulator (csrc/field{32,64,256}.cuh)."""
+    return {1: 2, 2: 3, 8: 9}[ring.nl]
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _red(ring: Ring, device: torch.device):
+    """``ops.red_rows`` on ``device``, copied there once (a copy from host
+    memory at every call would wait for the stream)."""
+    return ops.red_rows(ring, device)
+
+
+def _aligned(t):
+    """``t`` itself when its data starts 16 bytes aligned (the kernel's
+    16-byte copies need it), else a copy in fresh storage."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _commit_sm90(ring: Ring, matrix, f, mode: int = 3, partial=None):
+    """Launch csrc/commit_sm90_kernel.cu on CUDA tensors: pass 1 (the
+    partial sums of each chunk of n) and pass 2 (the sum over chunks, one
+    reduction, the y^(e+k) fold). ``mode`` 1 or 2 runs one pass alone, on
+    the ``partial`` scratch it is given (to time them apart; such calls
+    are not counted). Returns (out, partial)."""
+    dev = f.device
+    kappa, n = matrix.shape[0], matrix.shape[1]
+    Nb = f.shape[1]
+    if f.shape[0] != n:
+        raise ValueError(f"witness length {f.shape[0]} != matrix width {n}")
+    if tuple(matrix.shape[2:]) != (ring.ncomp, ring.e, ring.nl) or tuple(f.shape[2:]) != (ring.ncomp, ring.e, ring.nl):
+        raise ValueError(f"commit_sm90: shapes {tuple(matrix.shape)} / {tuple(f.shape)} are not {ring.name}'s")
+    cuda.require_tensor(matrix, "commit matrix", dev)
+    cuda.require_tensor(f, "commit witness", dev)
+    matrix, f = _aligned(matrix), _aligned(f)
+    pl = commit_sm90_plan(ring, kappa, n, Nb, _sms(dev))
+    S = 2 * ring.e - 1
+    if partial is None:
+        partial = torch.empty((pl.nchunks, ring.ncomp, kappa * Nb, S, _acc_words(ring)), dtype=torch.int64, device=dev)
+    out = torch.empty((kappa, Nb, ring.ncomp, ring.e, ring.nl), dtype=torch.int64, device=dev)
+    red = _red(ring, dev)
+    fn = cuda.kernel("commit_sm90")
+    code = fn(
+        matrix.data_ptr(), f.data_ptr(), 0 if red is None else red.data_ptr(),
+        partial.data_ptr(), out.data_ptr(), kappa, n, Nb, ring.ncomp, ring.e, ring.nl,
+        pl.kt, pl.bt, pl.direct, pl.kg, pl.bg, pl.lanes, pl.tn, pl.chunk, pl.nchunks, pl.fwarps, mode,
+        cuda.field_constants(ring.q, ring.nl), cuda.stream_handle(dev),
+    )
+    cuda.check(code, "commit_sm90")
+    if mode == 3:
+        cuda.LAUNCHES["commit_sm90"] += 1
+    return out, partial
+
+
 def ajtai_commit(ring: Ring, matrix, f):
     """Commit a batch of witnesses: f [n, Nb, ncomp, e, nl] ->
     [kappa, Nb, ncomp, e, nl] (matrix [kappa, n, ncomp, e, nl])."""
     if f.device.type == "cpu":
         return ajtai_commit_plain(ring, matrix, f)
-    return _commit_kernel(ring, matrix, f.contiguous())
+    return _commit_sm90(ring, matrix, f.contiguous())[0]
 
 
 # ---------------------------------------------------------------------------
