@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive latticefold_torch's main paths on one NVIDIA GPU and check them.
 
-  python3 chip_smoke.py   # every path, about 16 min of command time
+  python3 chip_smoke.py             # every path, about 12 min of command time
+  python3 chip_smoke.py --profile   # and one more Stark prove under the profiler (about 3 min)
 
 The paths: one NIFS fold per ring through ``nifs.prove`` / ``nifs.verify``,
 on the identity R1CS of wit_len 4096, x_len 1, with a witness of ones and
@@ -13,9 +14,12 @@ Ajtai seed 7 on the standard path (the port's rule must choose it there):
   stark       DP_STARK_E2E   kappa 17  accepts at wit_len 4096
 
 Each fold runs its counted prove only (no timed prove; Stark's profiled
-prove follows), to leave room in the time limit for phases 3b-4; Frog's
-is there so that the kernels run at its shapes (nl 2, e 4, d 16) on a
-path.
+prove only with ``--profile``), to leave room in the time limit for
+phases 3b-4; Frog's is there so that the kernels run at its shapes (nl 2,
+e 4, d 16) on a path. The CPU halves of the card-against-CPU checks (the
+small fixtures of phases 3 and 4c) run in one worker process, started
+after the build, while the card works; the script stops it before it
+exits.
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -95,21 +99,22 @@ Phases (any failure raises and the script exits non-zero):
    ``serialize_lcccs``) as on the CPU, for Goldilocks over a two-step
    chain (both steps' proofs). The native
    (C++) Poseidon sponge must have built for the rings with q < 2^64. Peak
-   device memory is printed. One more Stark prove runs under the profiler
-   (device busy s, device kernels, idle share; about 5 min in all, most of
-   it spent stopping the profiler and reading ~3 million events).
+   device memory is printed. With ``--profile``, one more Stark prove runs
+   under the profiler (device busy s, device kernels, idle share; about 3
+   min in all, most of it spent stopping the profiler and reading ~3
+   million events).
 3b. The IVC chain of ``latticefold_torch.e2e`` (``run_chain``'s parts:
    ``setup_chain``, ``fold_steps``, ``prove_step``) on Goldilocks at
    DP_GOLDILOCKS with the fold phase's instance (wit_len 4096, x_len 1,
-   kappa 9, Ajtai seed 7): 3 steps, each folding the fresh instance into
+   kappa 9, Ajtai seed 7): 2 steps, each folding the fresh instance into
    the accumulator of the step before. Each step's prove is counted on its
    own and must launch the tensor-core CRT 31, the Hopper dot 2 and the
    diagonal epilogue 2 times and nothing else; step 1's proof bytes must
    equal the fold phase's counted prove's; every proof and accumulator
    must survive serialize -> deserialize -> serialize; the verifier
    replays the steps from the bootstrap accumulator and must reach the
-   prover's accumulator after each; w_3 must open acc_3.cm; and step 3,
-   proved again from the serialized acc_2 and w_2's digits
+   prover's accumulator after each; w_2 must open acc_2.cm; and step 2,
+   proved again from the serialized acc_1 and w_1's digits
    (``serialize_lcccs``, ``serialize_witness_f``,
    ``Witness.from_f_coeff``), must give the same proof bytes. Recorded:
    each step's prove seconds, proof bytes (raw and zlib), peak device
@@ -176,6 +181,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import multiprocessing
 import os
 import statistics
 import subprocess
@@ -193,6 +199,7 @@ PEAK_MAD32_PER_S = 33.5e12
 PEAK_INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core operations (a MAC is two)
 PEAK_BF16_OPS_PER_S = 989e12
 PLAIN_CHUNK_BYTES = 1 << 30  # largest product tensor of the chunked plain commit
+CPU_WAIT_S = 900  # longest wait for a CPU half of a check (the worker may have died)
 
 WIT_LEN = 4096
 X_LEN = 1
@@ -203,12 +210,13 @@ PATHS = {
     "babybear": ("DP_BABYBEAR", 6, 0),
     "stark": ("DP_STARK_E2E", 17, 0),
 }
-PROFILED = "stark"  # the ring whose fold runs one more prove under the profiler
+PROFILED = "stark"  # with --profile, the ring whose fold runs one more prove under the profiler
+CPU_WORKER_THREADS = 4  # torch threads of the worker that makes the CPU halves of the checks
 # the IVC chain (latticefold_torch.e2e): ring, kappa and steps at WIT_LEN,
 # X_LEN, with the fold phase's instance; the step after which it is
 # checkpointed and resumed; the steps of the small fixture's chain
-CHAIN = ("goldilocks", 9, 3)
-CHAIN_RESUME_AFTER = 2
+CHAIN = ("goldilocks", 9, 2)
+CHAIN_RESUME_AFTER = 1
 SMALL_CHAIN_STEPS = 2
 # phase 3c, moderate b: the fold phase's instance of this ring and kappa at
 # this preset (its small fixtures are left out for the time limit, PERF.md
@@ -549,6 +557,33 @@ def small_fold(name, device, steps=1):
         acc, w_acc, proof = nifs.prove(acc, w_acc, cm_i, wit, Transcript(ring), ccs, scheme, dp)
         proofs.append(serialization.serialize_proof(ring, proof))
     return proofs, serialization.serialize_lcccs(ring, acc)
+
+
+def small_fold_timed(name, device, steps):
+    """``small_fold`` and the seconds it took."""
+    t0 = time.perf_counter()
+    out = small_fold(name, device, steps)
+    return out, time.perf_counter() - t0
+
+
+def cpu_worker_init():
+    import torch
+
+    torch.set_num_threads(CPU_WORKER_THREADS)
+
+
+def start_cpu_halves(pool) -> dict:
+    """Starts, in ``pool``, the CPU halves of the card-against-CPU checks:
+    each ring's small fixture (``small_fold_timed``, in PATHS order) and
+    phase 4c's prove (``plus_small_prove``, under "plus small"). Returns
+    their AsyncResults by ring name."""
+    import torch
+
+    cpu = torch.device("cpu")
+    jobs = {name: pool.apply_async(small_fold_timed, (name, cpu, SMALL_CHAIN_STEPS if name == CHAIN[0] else 1))
+            for name in PATHS}
+    jobs["plus small"] = pool.apply_async(plus_small_prove, (cpu,))
+    return jobs
 
 
 @contextlib.contextmanager
@@ -1831,44 +1866,49 @@ def run_plus_multi(device, kres_crt):
                 kernels={f"{kk}:{sh}": v for (kk, sh), v in kres.items()}), entries
 
 
-def run_plus_small(device):
-    """Phase 4c: ``PLUS_SMALL`` proved once on the card (verified) and once
-    on the CPU: the ``serialize_plus_proof`` bytes must be equal, and hash
-    to the JAX prover's digest (PLUS_SMALL_SHA256)."""
-    import hashlib
-
-    import torch
-
+def plus_small_prove(dev):
+    """``PLUS_SMALL`` proved on ``dev`` (and verified there on the card);
+    returns the ``serialize_plus_proof`` bytes and the seconds taken."""
     from latticefold_torch import serialization as ser
     from latticefold_torch.plus import PlusProver, PlusTranscript, PlusVerifier, estimate_bound
     from latticefold_torch.rings.construct import get_ring
 
+    t0 = time.perf_counter()
     ring = get_ring("frog")
     n, k, kappa = PLUS_SMALL
     B = estimate_bound(ring.d * 128, 3, ring.d, k) + 1
+    scheme, c, pparams = plus_setup(n, k, kappa, B, dev)
+    proof = PlusProver(scheme=scheme, M=c.x.matrices, transcript=PlusTranscript(ring), params=pparams).prove([c])
+    if dev.type == "cuda":
+        PlusVerifier(ring=ring, M=c.x.matrices, transcript=PlusTranscript(ring), params=pparams).verify(proof)
+    return ser.serialize_plus_proof(ring, proof), time.perf_counter() - t0
 
-    def prove_on(dev):
-        t0 = time.perf_counter()
-        scheme, c, pparams = plus_setup(n, k, kappa, B, dev)
-        proof = PlusProver(scheme=scheme, M=c.x.matrices, transcript=PlusTranscript(ring), params=pparams).prove([c])
-        if dev.type == "cuda":
-            PlusVerifier(ring=ring, M=c.x.matrices, transcript=PlusTranscript(ring), params=pparams).verify(proof)
-        return ser.serialize_plus_proof(ring, proof), time.perf_counter() - t0
 
-    card, card_s = prove_on(device)
-    cpu, cpu_s = prove_on(torch.device("cpu"))
+def run_plus_small(device, cpu_job=None):
+    """Phase 4c: ``PLUS_SMALL`` proved once on the card (verified) and once
+    on the CPU (``cpu_job``, the worker's ``plus_small_prove``; None: here,
+    after the card's): the ``serialize_plus_proof`` bytes must be equal,
+    and hash to the JAX prover's digest (PLUS_SMALL_SHA256)."""
+    import hashlib
+
+    import torch
+
+    card, card_s = plus_small_prove(device)
+    cpu, cpu_s = cpu_job.get(CPU_WAIT_S) if cpu_job else plus_small_prove(torch.device("cpu"))
+    n, k, kappa = PLUS_SMALL
     if card != cpu:
         raise AssertionError("small LatticeFold+ fixture: the card's proof bytes differ from the CPU's")
     digest = hashlib.sha256(card).hexdigest()
     if digest != PLUS_SMALL_SHA256:
         raise AssertionError(f"small LatticeFold+ fixture: sha256 {digest}, the JAX prover's {PLUS_SMALL_SHA256}")
-    log(f"[plus small n={n} k={k}] card {card_s:.1f} s (verified), CPU {cpu_s:.1f} s: equal proof bytes "
-        f"({len(card)} B), the JAX prover's digest")
+    log(f"[plus small n={n} k={k}] card {card_s:.1f} s (verified), CPU {cpu_s:.1f} s: "
+        f"equal proof bytes ({len(card)} B), the JAX prover's digest")
     return dict(n=n, k=k, kappa=kappa, card_s=card_s, cpu_s=cpu_s, proof_bytes=len(card), sha256=digest)
 
 
-def run_plus_phase(device, kres_frog=None):
-    """Phase 4, LatticeFold+: 4a, 4b, 4c. ``kres_frog``: phase 2's Frog
+def run_plus_phase(device, kres_frog=None, cpu_small=None):
+    """Phase 4, LatticeFold+: 4a, 4b, 4c (``cpu_small``: the worker's job
+    for 4c's CPU prove, or None). ``kres_frog``: phase 2's Frog
     records, whose CRT shapes at crt N = 2^15 are this path's; without them
     (phase 4 alone) the CRT is held here at the path's shapes (icrt N = m,
     crt and icrt N = n). Returns (record, kernels JSON entries)."""
@@ -1887,41 +1927,18 @@ def run_plus_phase(device, kres_frog=None):
     torch.cuda.empty_cache()
     record["multi"], ent = run_plus_multi(device, kres_crt)
     entries += ent
-    record["small"] = run_plus_small(device)
+    record["small"] = run_plus_small(device, cpu_small)
     return record, entries
 
 
-def main() -> int:
+def run_paths(device, smi, cpu_jobs, profile):
+    """Phases 1b-4 (``cpu_jobs``: ``start_cpu_halves``'s jobs; ``profile``:
+    run PROFILED's profiled prove). Returns (record, kernels JSON entries)."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
-    sys.path.insert(0, HERE)
-    try:
-        from latticefold_torch import cuda, params
-        from latticefold_torch.commitment import AjtaiScheme
-        from latticefold_torch.rings.construct import get_ring
-    except ImportError as e:
-        print(f"chip_smoke: the latticefold_torch package is not beside this script ({e})",
-              file=sys.stderr)
-        return 2
-    device = torch.device("cuda", torch.cuda.current_device())
-    os.makedirs(OUT_DIR, exist_ok=True)
-    open(os.path.join(OUT_DIR, "chip_smoke_run.log"), "w").close()
-
-    # phase 1: the card and the build
-    kind = torch.cuda.get_device_name(0)
-    smi = nvidia_smi_line()
-    log(f"[card] {kind}; torch {torch.__version__} cuda {torch.version.cuda}")
-    log(smi)
-    t0 = time.perf_counter()
-    built = cuda.build()
-    log(f"[build] {', '.join(f'{k} {v:.1f} s' for k, v in built.items()) or 'up to date'} "
-        f"(wall {time.perf_counter() - t0:.1f} s, parallel nvcc)")
-    with open(os.path.join(OUT_DIR, "chip_smoke_build.log"), "w") as fh:
-        for k, v in cuda.BUILD_LOG.items():
-            fh.write(f"== {k}\n{v}\n")
+    from latticefold_torch import params
+    from latticefold_torch.commitment import AjtaiScheme
+    from latticefold_torch.rings.construct import get_ring
 
     record = dict(card=smi, wit_len=WIT_LEN, rings={})
     # phase 1b: the byte-plane batch commit and the probes
@@ -1936,13 +1953,16 @@ def main() -> int:
         ring = get_ring(name)
         scheme = AjtaiScheme(ring, kappa, WIT_LEN * dp.L, seed=7, device=device)
         kres = kres_by_ring[name] = check_kernels(name, dp, scheme, device)
-        fold = folds[name] = run_fold(name, dp, scheme, reps, device, profile=name == PROFILED)
+        fold = folds[name] = run_fold(name, dp, scheme, reps, device, profile=profile and name == PROFILED)
         steps = SMALL_CHAIN_STEPS if name == CHAIN[0] else 1
-        card = small_fold(name, device, steps)
-        if card != small_fold(name, torch.device("cpu"), steps):
+        card, card_s = small_fold_timed(name, device, steps)
+        cpu, cpu_s = cpu_jobs[name].get(CPU_WAIT_S)
+        if card != cpu:
             raise AssertionError(f"small fold [{name}]: the card's proof or accumulator bytes differ from the CPU's")
+        fold["small_card_s"], fold["small_cpu_s"] = card_s, cpu_s
         log(f"[fold {name}] small fixture, {steps} step(s): the card's proof and accumulator bytes "
-            f"equal the CPU's ({[len(b) for b in card[0]]} B of proof)")
+            f"equal the CPU's ({[len(b) for b in card[0]]} B of proof; card {card_s:.1f} s, CPU {cpu_s:.1f} s "
+            f"in the worker)")
         proof_bytes = fold.pop("proof_bytes")
         if name == CHAIN[0]:
             chain_fold_proof = proof_bytes
@@ -1964,8 +1984,55 @@ def main() -> int:
     entries += ent
 
     # phase 4: LatticeFold+
-    record["plus"], ent = run_plus_phase(device, kres_by_ring["frog"])
+    record["plus"], ent = run_plus_phase(device, kres_by_ring["frog"], cpu_jobs["plus small"])
     entries += ent
+    return record, entries
+
+
+def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Drive latticefold_torch's main paths on one NVIDIA GPU.")
+    ap.add_argument("--profile", action="store_true",
+                    help=f"also run one more {PROFILED} fold prove under torch.profiler (about 3 min)")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    try:
+        from latticefold_torch import cuda
+    except ImportError as e:
+        print(f"chip_smoke: the latticefold_torch package is not beside this script ({e})",
+              file=sys.stderr)
+        return 2
+    device = torch.device("cuda", torch.cuda.current_device())
+    os.makedirs(OUT_DIR, exist_ok=True)
+    open(os.path.join(OUT_DIR, "chip_smoke_run.log"), "w").close()
+
+    # phase 1: the card and the build
+    kind = torch.cuda.get_device_name(0)
+    smi = nvidia_smi_line()
+    log(f"[card] {kind}; torch {torch.__version__} cuda {torch.version.cuda}")
+    log(smi)
+    t0 = time.perf_counter()
+    built = cuda.build()
+    log(f"[build] {', '.join(f'{k} {v:.1f} s' for k, v in built.items()) or 'up to date'} "
+        f"(wall {time.perf_counter() - t0:.1f} s, parallel nvcc)")
+    with open(os.path.join(OUT_DIR, "chip_smoke_build.log"), "w") as fh:
+        for k, v in cuda.BUILD_LOG.items():
+            fh.write(f"== {k}\n{v}\n")
+
+    # the CPU halves of the card-against-CPU checks, beside the card's work
+    pool = multiprocessing.get_context("spawn").Pool(1, initializer=cpu_worker_init)
+    try:
+        record, entries = run_paths(device, smi, start_cpu_halves(pool), args.profile)
+    finally:
+        pool.terminate()
+        pool.join()
 
     # phase 5: the record
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
