@@ -58,8 +58,16 @@ Phases (any failure raises and the script exits non-zero):
    - the TPU probes P1-P5 (``rings/plane_probes.py``) at their TPU shapes,
      each equal to its plain version, timed beside its bound and, where one
      PyTorch call computes the same function, that call (``torch._int_mm``
-     for the int8 dots it accepts, 8 calls for the 8-component dots); P1 v1
-     runs the mma.sync dot, P1 v2 and P2 batched the Hopper dot.
+     for the int8 dots it accepts, 8 calls for the 8-component dots, with B
+     as given, N-contiguous, and handed column-major); P1 v1 runs the
+     mma.sync dot, P1 v2, dot_only, P2 batched and P3 kmajor the Hopper dot,
+     P4 and P5 dot_u8 kernel C's Hopper GEMM (``int_gemm_sm90_kernel.cu``,
+     one launch, no clearing of C), P5 dot_u8_via_bf16 the first kernel C;
+     each Hopper kernel of P1 dot_only, P3 and P4 / P5 dot_u8 timed in turns
+     with its first design (``plane_dot_mma``, ``int_gemm_mma``), which
+     must equal the plain version too, on the device and for the host's
+     time a call (``host_us_in_turns``); P5 bitcast and merge timed in turns
+     with ``clone()`` over 200 launches each.
 2. For each ring, hold each kernel against its plain PyTorch version on the
    card at the path's shapes: the tensor-core CRT kernel
    (``crt_tc_kernel.cu``) as icrt at N = wit_len (the input witness), crt
@@ -327,6 +335,25 @@ def time_in_turns(fns: dict, reps, flush):
     return {k: statistics.median(v) for k, v in ts.items()}
 
 
+def host_us_in_turns(fns: dict, rounds=10, calls=20):
+    """Median host time of one call of each function, in microseconds: the
+    host clock over ``calls`` calls in a row (the device not waited for),
+    the functions in turns for ``rounds`` rounds. Returns {key: us}."""
+    import torch
+
+    ts = {k: [] for k in fns}
+    keys = list(fns)
+    for r in range(rounds):
+        for k in keys if r % 2 == 0 else keys[::-1]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fns[k]()
+            ts[k].append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return {k: statistics.median(v) for k, v in ts.items()}
+
+
 def bound(ring, n_values: int, n_products: int) -> dict:
     """Least time for work that moves ``n_values`` F_q values and does
     ``n_products`` F_q products: the larger of the byte and operation
@@ -391,7 +418,8 @@ def check_crt(name, ring, n, device, flush, wit_len=WIT_LEN):
         # of signed operands at the dot's M x K x columns
         a8 = torch.randint(-128, 128, (N, K), dtype=torch.int8, device=device)
         b8 = torch.randint(-128, 128, (K, cols), dtype=torch.int8, device=device)
-        tc["int_mm_ms"] = int_mm_ms([(a8, b8)], flush)
+        mm = int_mm_ms([(a8, b8)], flush)
+        tc["int_mm_ms"], tc["int_mm_b_col_major_ms"] = mm["b_row_major_ms"], mm["b_col_major_ms"]
         del a8, b8
         results[("crt_tc", shape)] = tc
         b = bound(ring, 2 * N * d, N * d * d)
@@ -399,7 +427,8 @@ def check_crt(name, ring, n, device, flush, wit_len=WIT_LEN):
         log(f"[kernels] crt_tc[{name}] {shape}: {tc['ms']:.4f} ms (SIMT crt_kernel {simt_ms:.4f} ms)  "
             f"bound {tc['bound_ms']:.5f} ms ({tc['bound_by']}), lane floor {tc['lane_floor']['bound_ms']:.5f}  "
             f"plain {tc['plain_ms']:.2f} ms, conv plain {tc['conv_plain_ms']:.2f} ms  _int_mm of the dot "
-            f"{tc['int_mm_ms']:.4f} ms  exact against both plain versions")
+            f"{tc['int_mm_ms']:.4f} ms (B column-major {tc['int_mm_b_col_major_ms']:.4f})  exact against both "
+            "plain versions")
         del x, got
     return results
 
@@ -905,15 +934,23 @@ def counted(what, fn, expected: dict):
 
 
 def int_mm_ms(pairs, flush):
-    """ms of ``torch._int_mm`` over the (a, b) pairs, timed together, or None
+    """ms of ``torch._int_mm`` over the (a, b) pairs, timed together, with
+    each b as given (row-major: N-contiguous) and handed column-major
+    (``b.t().contiguous().t()``, made outside the timed region: cuBLASLt's
+    own int8 layout), as {"b_row_major_ms", "b_col_major_ms"}; or None
     where it does not take the shape (M > 16, K and N multiples of 8)."""
     import torch
 
     if not all(a.shape[0] > 16 and a.shape[1] % 8 == 0 and b.shape[1] % 8 == 0 for a, b in pairs):
         return None
-    for a, b in pairs:
-        torch._int_mm(a, b)
-    return time_ms(lambda: [torch._int_mm(a, b) for a, b in pairs], 10, flush)
+    cols = [(a, b.t().contiguous().t()) for a, b in pairs]
+    out = {}
+    for key, ps in (("b_row_major_ms", pairs), ("b_col_major_ms", cols)):
+        for a, b in ps:
+            torch._int_mm(a, b)
+        out[key] = time_ms(lambda ps=ps: [torch._int_mm(a, b) for a, b in ps], 10, flush)
+    del cols
+    return out
 
 
 def plane_commit_shape(label, name, kappa, n, Nb, seed, wseed, device, flush, with_route_plain,
@@ -988,7 +1025,8 @@ def plane_commit_shape(label, name, kappa, n, Nb, seed, wseed, device, flush, wi
     # the least time the port's layout allows: the int64 lanes are 8 B a word
     kern_a["lane_floor"] = roofline(c * mpad * ks + c * ks * L * 8 + out_a, 2 * c * mpad * ks * 4 * L)
     planes_i8 = pc._signed_planes(w0, "full").to(torch.int8)
-    kern_a["library_ms"] = int_mm_ms([(lhs0[ci], planes_i8[ci]) for ci in range(c)], flush)
+    mm = int_mm_ms([(lhs0[ci], planes_i8[ci]) for ci in range(c)], flush) or {}
+    kern_a["library_ms"], kern_a["library_b_col_major_ms"] = mm.get("b_row_major_ms"), mm.get("b_col_major_ms")
     del planes_i8
     B = pc.epilogue(ring, P, pre.sM, rows, n, Nb)
     if (B != got).any():
@@ -1016,7 +1054,8 @@ def plane_commit_shape(label, name, kappa, n, Nb, seed, wseed, device, flush, wi
         f"({rec['cm_commits_per_s']:.1f} commits/s, bound {rec['cm_bound']['bound_ms']:.4f} ms); "
         f"A {kern_a['ms']:.4f} ms (mma.sync {kern_a['mma_sync_ms']:.4f}; bound "
         f"{kern_a['bound_ms']:.4f} {kern_a['bound_by']}, lane floor {kern_a['lane_floor']['bound_ms']:.4f}, plain "
-        f"{kern_a['plain_ms']:.2f}, _int_mm {kern_a['library_ms']}), B {kern_b['ms']:.4f} ms (items "
+        f"{kern_a['plain_ms']:.2f}, _int_mm {kern_a['library_ms']} / B column-major "
+        f"{kern_a['library_b_col_major_ms']}), B {kern_b['ms']:.4f} ms (items "
         f"{kern_b['items_ms']:.4f}; bound {kern_b['bound_ms']:.4f}, plain {kern_b['plain_ms']:.2f}); "
         f"launches {launches}; "
         f"equal to the commit kernel{' and the plain route' if with_route_plain else ''}")
@@ -1036,7 +1075,7 @@ def route_entries(label, rec, launches):
     entries = []
     for key in ROUTE_KERNELS:
         r = rec[key]
-        extra = {k: v for k, v in r.items() if k in ("mma_sync_ms", "items_ms")}
+        extra = {k: v for k, v in r.items() if k in ("mma_sync_ms", "items_ms", "library_b_col_major_ms")}
         if "lane_floor" in r:
             extra["lane_floor_ms"] = r["lane_floor"]["bound_ms"]
         entries.append(dict(
@@ -1278,25 +1317,61 @@ def check_odd_batch(device):
     return dict(ring="babybear", kappa=kappa, n=n, Nb=Nb, launches=launches, equal_to_commit_batch_cm=True)
 
 
-def probe_case(label, kernel, fn, plain, flush, n_bytes, ops, peak_ops=PEAK_INT8_OPS_PER_S, library=None):
+def probe_case(label, kernel, fn, plain, flush, n_bytes, ops, peak_ops=PEAK_INT8_OPS_PER_S, library=None,
+               first=None):
     """One probe: counted run (one launch of ``kernel``), exact against the
-    plain version, timed beside its bound and the library call."""
+    plain version, timed beside its bound and the library call (``library``:
+    a function returning ms, or ``int_mm_ms``'s two layouts). ``first``:
+    the same function on the kernel's first design, held against the plain
+    version too (uncounted) and timed in turns with the kernel, 50 runs
+    each (the small GEMMs sit near the launch floor, where 20 runs left
+    10 % between calls)."""
     got, launches = counted(label, fn, {kernel: 1})
-    err = max_abs_err(label, got, plain())
-    r = dict(max_abs_err=err, launches=launches[kernel], ms=time_ms(fn, 20, flush),
-             plain_ms=time_ms(plain, 2, flush), library_ms=library() if library else None,
-             **roofline(n_bytes, ops, peak_ops))
+    want = plain()
+    err = max_abs_err(label, got, want)
+    del got
+    r = dict(max_abs_err=err, launches=launches[kernel])
+    if first is None:
+        r["ms"] = time_ms(fn, 20, flush)
+    else:
+        max_abs_err(f"{label} (first design)", first(), want)
+        turns = time_in_turns({"new": fn, "first": first}, 50, flush)
+        host = host_us_in_turns({"new": fn, "first": first})
+        r.update(ms=turns["new"], first_ms=turns["first"], faster_than_first=turns["new"] < turns["first"],
+                 host_us=host["new"], first_host_us=host["first"])
+    del want
+    lib = library() if library else None
+    if isinstance(lib, dict):
+        r.update(library_ms=lib["b_row_major_ms"], library_b_col_major_ms=lib["b_col_major_ms"])
+    else:
+        r["library_ms"] = lib
+    r.update(plain_ms=time_ms(plain, 2, flush), **roofline(n_bytes, ops, peak_ops))
     extra = ""
     if ops == 0:
         r["gb_per_s"] = n_bytes / (r["ms"] / 1e3) / 1e9
         extra = f", {r['gb_per_s']:.1f} GB/s of {PEAK_BYTES_PER_S / 1e9:.0f}"
+    if first is not None:
+        extra += (f"; first design {r['first_ms']:.4f} ms in turns; host us a call {r['host_us']:.2f}, first "
+                  f"design {r['first_host_us']:.2f}")
+    if "library_b_col_major_ms" in r:
+        extra += f"; _int_mm B column-major {r['library_b_col_major_ms']}"
     log(f"[probe {label}] {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} {r['bound_by']}{extra}), plain "
         f"{r['plain_ms']:.3f} ms, library {r['library_ms']}; exact")
     return r
 
 
+def relayout_turns(label, fn, lib, flush, reps=200):
+    """P5's one-launch relayouts against ``clone()`` of the same bytes, in
+    turns over ``reps`` launches each: a tie or a loss, as measured."""
+    t = time_in_turns({"kernel": fn, "clone": lib}, reps, flush)
+    log(f"[probe {label}] in turns over {reps} launches each: kernel {t['kernel']:.5f} ms, clone() "
+        f"{t['clone']:.5f} ms")
+    return t
+
+
 def check_probes(device):
-    """Phase 1b, the TPU probes P1-P5 at their TPU shapes."""
+    """Phase 1b, the TPU probes P1-P5 at their TPU shapes; each kernel
+    redesigned for Hopper timed in turns with its first design."""
     import torch
 
     from latticefold_torch.rings import plane_commit as pc
@@ -1337,8 +1412,9 @@ def check_probes(device):
             f"P1 planes_only {tag}", "plane_dot", lambda: pp.plane_dot(a, w, "planes_only"),
             lambda: pc.plane_dot_plain(a, w, "planes_only"), flush, C * K * L * 4 + C * M * 4 * L * 4, 0)
         cases[f"P1 dot_only {tag}"] = probe_case(
-            f"P1 dot_only {tag}", "plane_dot", lambda: pp.plane_dot(a, w, "dot_only"),
-            lambda: pc.plane_dot_plain(a, w, "dot_only"), flush, dot_bytes, dot_ops, library=lambda: lib(fake))
+            f"P1 dot_only {tag}", "plane_dot_sm90", lambda: pp.plane_dot(a, w, "dot_only"),
+            lambda: pc.plane_dot_plain(a, w, "dot_only"), flush, dot_bytes, dot_ops, library=lambda: lib(fake),
+            first=lambda: pp.plane_dot_mma(a, w, "dot_only"))
         cases[f"P2 batched {tag}"] = probe_case(
             f"P2 batched {tag}", "plane_dot_sm90", lambda: pp.plane_dot(a, w), lambda: pc.plane_dot_plain(a, w),
             flush, dot_bytes, dot_ops, library=lambda: lib(planes))
@@ -1346,22 +1422,25 @@ def check_probes(device):
             f"P2 dma {tag}", "dma_checksum", lambda: pp.dma_checksum(a, w), lambda: pp.dma_checksum_plain(a, w),
             flush, C * M * K + C * K * L * 4 + C * 4, 0)
         cases[f"P3 kmajor {tag}"] = probe_case(
-            f"P3 kmajor {tag}", "plane_dot", lambda: pp.plane_dot(at, w, kmajor=True),
+            f"P3 kmajor {tag}", "plane_dot_sm90", lambda: pp.plane_dot(at, w, kmajor=True),
             lambda: pc.plane_dot_plain(at, w, kmajor=True), flush, dot_bytes, dot_ops,
-            library=lambda: int_mm_ms([(at[ci].t(), planes[ci]) for ci in range(C)], flush))
+            library=lambda: int_mm_ms([(at[ci].t(), planes[ci]) for ci in range(C)], flush),
+            first=lambda: pp.plane_dot_mma(at, w, kmajor=True))
         cases[f"P3 dma {tag}"] = probe_case(
             f"P3 dma {tag}", "dma_checksum", lambda: pp.dma_checksum(at, w), lambda: pp.dma_checksum_plain(at, w),
             flush, C * M * K + C * K * L * 4 + C * 4, 0)
         del a, w, at, planes, fake
         torch.cuda.empty_cache()
 
-    def gemm(label, x, y, fn=pp.int_gemm, plain=pp.int_gemm_plain, peak=PEAK_INT8_OPS_PER_S, library=True):
+    def gemm(label, x, y, fn=pp.int_gemm, plain=pp.int_gemm_plain, peak=PEAK_INT8_OPS_PER_S, library=True,
+             kernel="int_gemm_sm90", first=pp.int_gemm_mma):
         (m, k), nn = x.shape, y.shape[1]
         out_bytes = m * nn * 4
         cases[label] = probe_case(
-            label, "int_gemm", lambda: fn(x, y), lambda: plain(x, y), flush,
+            label, kernel, lambda: fn(x, y), lambda: plain(x, y), flush,
             m * k * x.element_size() + k * nn * y.element_size() + out_bytes, 2 * m * nn * k, peak,
-            library=(lambda: int_mm_ms([(x, y)], flush)) if library else None)
+            library=(lambda: int_mm_ms([(x, y)], flush)) if library else None,
+            first=(lambda: first(x, y)) if first else None)
 
     gemm("P4 i8exact s8 256x2048x256", i8(256, 2048), i8(2048, 256))
     gemm("P4 i8exact u8 256x2048x256", u8(256, 2048), u8(2048, 256), library=False)
@@ -1371,23 +1450,29 @@ def check_probes(device):
     gemm("P5 dot_u8 128x256x128", u8(128, 256), u8(256, 128), library=False)
     x, y = u8(128, 128), u8(128, 128)
     gemm("P5 dot_u8_via_bf16 128x128x128", x, y, fn=pp.bf16_gemm, plain=pp.bf16_gemm_plain,
-         peak=PEAK_BF16_OPS_PER_S, library=False)
+         peak=PEAK_BF16_OPS_PER_S, library=False, kernel="int_gemm", first=None)
     xb = u32(8, 128)
     cases["P5 bitcast 8x128"] = probe_case(
         "P5 bitcast 8x128", "bitcast", lambda: pp.bitcast_u8(xb), lambda: xb.view(torch.uint8), flush,
         2 * xb.numel() * 4, 0, library=lambda: time_ms(lambda: xb.view(torch.uint8).clone(), 20, flush))
+    cases["P5 bitcast 8x128"]["turns_with_clone"] = relayout_turns(
+        "P5 bitcast 8x128", lambda: pp.bitcast_u8(xb), lambda: xb.view(torch.uint8).clone(), flush)
     ym = u32(8, 16, 4)
     cases["P5 merge 8x16x4"] = probe_case(
         "P5 merge 8x16x4", "merge", lambda: pp.merge_minor(ym), lambda: ym.reshape(8, 64), flush,
         2 * ym.numel() * 4, 0, library=lambda: time_ms(lambda: ym.reshape(8, 64).clone(), 20, flush))
+    cases["P5 merge 8x16x4"]["turns_with_clone"] = relayout_turns(
+        "P5 merge 8x16x4", lambda: pp.merge_minor(ym), lambda: ym.reshape(8, 64).clone(), flush)
     entries = []
     for label, r in cases.items():
         key = PROBE_KERNEL[label.split()[0] + " " + label.split()[1]]
+        extra = {k: r[k] for k in ("first_ms", "faster_than_first", "host_us", "first_host_us",
+                                   "library_b_col_major_ms", "turns_with_clone") if k in r}
         entries.append(dict(KERNEL_INFO[key], name=f"{KERNEL_INFO[key]['name']}[{label}]",
                             replaces=PROBE_REPLACES[label.split()[0] + " " + label.split()[1]],
                             launches=r["launches"], max_abs_err=r["max_abs_err"], ms=r["ms"],
                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                            library_ms=r["library_ms"], shape=label))
+                            library_ms=r["library_ms"], shape=label, **extra))
     del flush
     torch.cuda.empty_cache()
     return cases, entries
@@ -1428,6 +1513,8 @@ KERNEL_INFO = {
         replaces="latticefold_tpu/rings/pallas_commit.py:180",
     ),
     "int_gemm": dict(name="int_gemm_kernel", route="cuda", source="latticefold_torch/csrc/int_gemm_kernel.cu"),
+    "int_gemm_sm90": dict(name="int_gemm_sm90_kernel", route="cuda",
+                          source="latticefold_torch/csrc/int_gemm_sm90_kernel.cu"),
     "dma_checksum": dict(name="dma_checksum_kernel", route="cuda",
                          source="latticefold_torch/csrc/probe_kernels.cu"),
     "bitcast": dict(name="bitcast_u8_kernel", route="cuda", source="latticefold_torch/csrc/probe_kernels.cu"),
@@ -1435,9 +1522,9 @@ KERNEL_INFO = {
 }
 # probe (the first two words of its label) -> its kernel, and the TPU kernel it replaces
 PROBE_KERNEL = {
-    "P1 v1": "plane_dot", "P1 v2": "plane_dot_sm90", "P1 planes_only": "plane_dot", "P1 dot_only": "plane_dot",
-    "P2 batched": "plane_dot_sm90", "P2 dma": "dma_checksum", "P3 kmajor": "plane_dot", "P3 dma": "dma_checksum",
-    "P4 i8exact": "int_gemm", "P4 dotspeed": "int_gemm", "P5 dot_u8": "int_gemm",
+    "P1 v1": "plane_dot", "P1 v2": "plane_dot_sm90", "P1 planes_only": "plane_dot", "P1 dot_only": "plane_dot_sm90",
+    "P2 batched": "plane_dot_sm90", "P2 dma": "dma_checksum", "P3 kmajor": "plane_dot_sm90", "P3 dma": "dma_checksum",
+    "P4 i8exact": "int_gemm_sm90", "P4 dotspeed": "int_gemm_sm90", "P5 dot_u8": "int_gemm_sm90",
     "P5 dot_u8_via_bf16": "int_gemm", "P5 bitcast": "bitcast", "P5 merge": "merge",
 }
 PROBE_REPLACES = {
@@ -1526,7 +1613,8 @@ def kernel_entries(label, name, n, Nb, kres, launches, route_rec, kappa=None):
         extra = {}
         if key == "crt_tc":
             extra = dict(simt_ms=r["simt_ms"], lane_floor_ms=r["lane_floor"]["bound_ms"],
-                         conv_plain_ms=r["conv_plain_ms"], int_mm_dot_ms=r["int_mm_ms"])
+                         conv_plain_ms=r["conv_plain_ms"], int_mm_dot_ms=r["int_mm_ms"],
+                         int_mm_dot_b_col_major_ms=r["int_mm_b_col_major_ms"])
         elif key == "commit_sm90":
             extra = {k: r[k] for k in ("lane_floor_ms", "old_ms", "route_ms", "pass1_ms", "pass2_ms")}
         elif key == "commit":

@@ -12,15 +12,19 @@ Kernels (``csrc/``, built at first use by ``cuda.py``):
 
     crt_tc_kernel.cu          CRT / ICRT on u8 tensor cores       (rings/ops.py)
     crt_kernel.cu             CRT / ICRT on CUDA cores, the former (rings/ops.py)
-    plane_dot_sm90_kernel.cu  byte-plane commit dot, wgmma + TMA  (rings/plane_commit.py)
+    plane_dot_sm90_kernel.cu  byte-plane commit dot, wgmma + TMA, and
+                              its probe modes (K-major, dot only) (rings/plane_commit.py)
     plane_epilogue_diag_kernel.cu  byte-plane commit epilogue, a
                               lane per patch diagonal             (rings/plane_commit.py)
     plane_epilogue_kernel.cu  the same, a thread per item, the former
-    plane_dot_kernel.cu       byte-plane dot on mma.sync, probes  (rings/plane_commit.py)
+    plane_dot_kernel.cu       byte-plane dot on mma.sync: planes
+                              only, and the former of the others  (rings/plane_commit.py)
     commit_sm90_kernel.cu     Ajtai commitment contraction, staged
                               whole rows and lazy lane sums       (rings/mxu.py)
     commit_kernel.cu          the same, a thread per pair, the former
-    int_gemm_kernel.cu, probe_kernels.cu  the TPU probes          (rings/plane_probes.py)
+    int_gemm_sm90_kernel.cu   the probes' s8 / u8 GEMM, wgmma     (rings/plane_probes.py)
+    int_gemm_kernel.cu, probe_kernels.cu  the other TPU probes, and
+                              the GEMM's former                   (rings/plane_probes.py)
 
 Public surface:
 

@@ -41,6 +41,7 @@ SOURCES = {
     "plane_epilogue": "plane_epilogue_kernel.cu",
     "plane_epilogue_diag": "plane_epilogue_diag_kernel.cu",
     "int_gemm": "int_gemm_kernel.cu",
+    "int_gemm_sm90": "int_gemm_sm90_kernel.cu",
     "probe": "probe_kernels.cu",
 }
 
@@ -53,10 +54,11 @@ _ARGTYPES = {
     "commit": ("commit", "lf_ajtai_commit", [_P] * 5 + [_I] * 9 + [_U64P, _P]),
     "commit_sm90": ("commit_sm90", "lf_commit_sm90", [_P] * 5 + [_I] * 17 + [_U64P, _P]),
     "plane_dot": ("plane_dot", "lf_plane_dot", [_P, _LL, _LL, _P, _LL, _LL, _I, _P] + [_I] * 8 + [_P]),
-    "plane_dot_sm90": ("plane_dot_sm90", "lf_plane_dot_sm90", [_P, _LL, _LL, _P, _LL, _LL, _I, _P] + [_I] * 6 + [_P]),
+    "plane_dot_sm90": ("plane_dot_sm90", "lf_plane_dot_sm90", [_P, _LL, _LL, _P, _LL, _LL, _I, _P] + [_I] * 8 + [_P]),
     "plane_epilogue": ("plane_epilogue", "lf_plane_epilogue", [_P] * 4 + [_I] * 11 + [_U64P, _P]),
     "plane_epilogue_diag": ("plane_epilogue_diag", "lf_plane_epilogue_diag", [_P] * 4 + [_I] * 12 + [_U64P, _P]),
     "int_gemm": ("int_gemm", "lf_int_gemm", [_P, _LL, _P, _LL, _P, _LL] + [_I] * 6 + [_P]),
+    "int_gemm_sm90": ("int_gemm_sm90", "lf_int_gemm_sm90", [_P, _LL, _P, _LL, _P] + [_I] * 6 + [_P] * 3),
     "dma_checksum": ("probe", "lf_dma_checksum", [_P, _LL, _P, _LL, _P, _I, _I, _P]),
     "bitcast": ("probe", "lf_bitcast_u8", [_P, _LL, _P, _P]),
     "merge": ("probe", "lf_merge_minor", [_P, _I, _I, _I, _P, _P]),

@@ -12,10 +12,12 @@ runs in slices of at most ``_K_SLICE`` terms:
      ``_dot_kernel``): per slice and component, P[m, byte L + word] =
      sum_k A_i8[m, k] * (int8)(byte of (W[k, word] ^ 0x80808080)), the
      witness planes built in registers from the u32 words, never in device
-     memory. The full dot runs on ``csrc/plane_dot_sm90_kernel.cu`` (wgmma
-     on TMA-loaded stages, every Ajtai row per block); the probe modes and
-     the K-major lhs on ``csrc/plane_dot_kernel.cu`` (mma.sync), which
-     ``plane_dot_mma`` also reaches in full mode.
+     memory. The dot runs on ``csrc/plane_dot_sm90_kernel.cu`` (wgmma on
+     TMA-loaded stages, every Ajtai row per block), as do the probes' K-major
+     lhs (each stage transposed in shared memory) and dot-only mode;
+     ``planes_only`` runs on ``csrc/plane_dot_kernel.cu`` (mma.sync), which
+     ``plane_dot_mma`` also reaches in the other modes: the Hopper dot's
+     in-call baseline, launched by no path.
   2. ``epilogue`` (kernel B, ``csrc/plane_epilogue_diag_kernel.cu``; the
      port of ``_epilogue_fused`` and ``mxu._ext_fold``): the unsigned-plane
      corrections P + 128 colsum + 128 rowsum + 128^2 ks of every slice, the
@@ -143,15 +145,15 @@ def _aligned16(t) -> bool:
     return t.data_ptr() % 16 == 0 and (t.stride(0) * e) % 16 == 0 and (t.stride(1) * e) % 16 == 0
 
 
-def _plane_dot_sm90(lhs, w):
+def _plane_dot_sm90(lhs, w, mode: str = "full", kmajor: bool = False):
     dev = w.device
     if lhs.device != dev or lhs.dtype != torch.int8 or lhs.stride(-1) != 1:
         raise ValueError("plane_dot: lhs must be an int8 tensor on the witness's device with unit last stride")
     if w.dtype not in (torch.int32, torch.int64) or w.stride(-1) != 1:
         raise ValueError("plane_dot: w must hold u32 words in int32 or int64 lanes, unit last stride")
     c, ks, L = w.shape
-    mpad = lhs.shape[1]
-    if lhs.shape[0] != c or lhs.shape[2] != ks:
+    mpad = lhs.shape[2] if kmajor else lhs.shape[1]
+    if lhs.shape[0] != c or (lhs.shape[1] if kmajor else lhs.shape[2]) != ks:
         raise ValueError(f"plane_dot: lhs {tuple(lhs.shape)} does not fit w {tuple(w.shape)}")
     groups, n = sm90_groups(mpad)
     if not (_aligned16(lhs) and _aligned16(w)):
@@ -163,8 +165,8 @@ def _plane_dot_sm90(lhs, w):
     out = (torch.zeros if ksplit > 1 else torch.empty)((c, mpad, 4 * L), dtype=torch.int32, device=dev)
     code = cuda.kernel("plane_dot_sm90")(
         lhs.data_ptr(), lhs.stride(0), lhs.stride(1), w.data_ptr(), w.stride(0),
-        w.stride(1), w.element_size(), out.data_ptr(), c, mpad, ks, L, ksplit, n,
-        cuda.stream_handle(dev),
+        w.stride(1), w.element_size(), out.data_ptr(), c, mpad, ks, L, ksplit, n, MODES[mode],
+        int(kmajor), cuda.stream_handle(dev),
     )
     cuda.check(code, "plane_dot_sm90")
     cuda.LAUNCHES["plane_dot_sm90"] += 1
@@ -201,27 +203,30 @@ def plane_dot(lhs, w, mode: str = "full", kmajor: bool = False):
     """Kernel A. lhs [c, Mpad, Ks] int8 (``kmajor``: [c, Ks, Mpad]), w
     [c, Ks, L] u32 words (int32 or int64 lanes; strided views along c and
     Ks are taken as they are) -> P [c, Mpad, 4 L] int32, column = byte L +
-    word. Modes: ``full`` (the K2 / P1 v2 / P2 batched function; row-major
-    lhs on the Hopper dot, ``plane_dot_sm90_kernel.cu``), ``planes_only``
-    (row 0 = the plane column sums, other rows 0) and ``dot_only`` (the dot
-    on fake planes, the low byte of each word), both on the mma.sync
-    kernel, as is the K-major lhs."""
+    word. Modes: ``full`` (the K2 / P1 v2 / P2 batched function, and P3's
+    with the K-major lhs), ``dot_only`` (the dot on fake planes, the low
+    byte of each word; row-major lhs), both on the Hopper dot
+    (``plane_dot_sm90_kernel.cu``), and ``planes_only`` (row 0 = the plane
+    column sums, other rows 0) on the mma.sync kernel."""
     if mode not in MODES:
         raise ValueError(f"plane_dot: no mode {mode!r} (modes: {', '.join(MODES)})")
     if w.device.type == "cpu":
         return plane_dot_plain(lhs, w, mode, kmajor)
-    if mode == "full" and not kmajor:
-        return _plane_dot_sm90(lhs, w)
-    return _plane_dot_kernel(lhs, w, mode, kmajor)
+    if mode == "planes_only":
+        return _plane_dot_kernel(lhs, w, mode, kmajor)
+    return _plane_dot_sm90(lhs, w, mode, kmajor)
 
 
-def plane_dot_mma(lhs, w):
-    """``plane_dot``'s full, row-major function on the mma.sync kernel
-    (``plane_dot_kernel.cu``): P1's ``kern_v1``, the in-call baseline of
-    the Hopper dot."""
+def plane_dot_mma(lhs, w, mode: str = "full", kmajor: bool = False):
+    """``plane_dot``'s full and dot-only functions (row-major or, in full
+    mode, K-major lhs) on the mma.sync kernel (``plane_dot_kernel.cu``):
+    P1's ``kern_v1`` and the Hopper dot's in-call baseline in every mode,
+    launched by no path."""
+    if mode not in ("full", "dot_only"):
+        raise ValueError(f"plane_dot_mma: no mode {mode!r} (full, dot_only)")
     if w.device.type == "cpu":
-        return plane_dot_plain(lhs, w)
-    return _plane_dot_kernel(lhs, w, "full", False)
+        return plane_dot_plain(lhs, w, mode, kmajor)
+    return _plane_dot_kernel(lhs, w, mode, kmajor)
 
 
 # ---------------------------------------------------------------------------

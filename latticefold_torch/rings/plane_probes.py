@@ -3,7 +3,8 @@ matrix-unit work (``benches/exp_r4_kvar*.py``, ``exp_r4_probe.py``,
 ``exp_pallas_probe.py``). Each probe function's kernels map to a function
 here:
 
-  P1 exp_r4_kvar.py:47 make_call     kern_v1            plane_dot_mma (mma.sync)
+  P1 exp_r4_kvar.py:47 make_call     kern_v1            plane_dot(mode="full") (plane_dot_mma:
+                                                        the mma.sync baseline)
                                      kern_v2            plane_dot(mode="full")
                                      kern_planes_only   plane_dot(mode="planes_only")
                                      kern_dot_only      plane_dot(mode="dot_only")
@@ -13,16 +14,20 @@ here:
                                      dma_kernel         dma_checksum
   P4 exp_r4_probe.py:61 probe_i8exact                   int_gemm (int8, uint8)
      exp_r4_probe.py:138 probe_dotspeed (Pallas dot)    int_gemm (int8)
+                                                        (int_gemm_mma: the first design)
   P5 exp_pallas_probe.py:18 main     k_bitcast          bitcast_u8
                                      k_dot_u8           int_gemm (uint8)
                                      k_dot_bf           bf16_gemm
                                      k_merge            merge_minor
 
-(``plane_dot`` is kernel A of ``rings/plane_commit.py``: its full mode on
-the Hopper dot, ``csrc/plane_dot_sm90_kernel.cu``, its other modes and
-``plane_dot_mma`` on the mma.sync kernel.) On CUDA tensors
-each function launches its kernel (``csrc/int_gemm_kernel.cu``,
-``csrc/probe_kernels.cu``); on CPU tensors it runs the plain version beside
+(``plane_dot`` is kernel A of ``rings/plane_commit.py``: its full and
+dot-only modes and its K-major lhs on the Hopper dot,
+``csrc/plane_dot_sm90_kernel.cu``, ``planes_only`` and ``plane_dot_mma``,
+the baseline, on the mma.sync kernel.) On CUDA tensors each function
+launches its kernel: ``int_gemm`` kernel C's Hopper GEMM
+(``csrc/int_gemm_sm90_kernel.cu``), ``bf16_gemm`` and ``int_gemm_mma``
+its first design (``csrc/int_gemm_kernel.cu``), the rest
+``csrc/probe_kernels.cu``; on CPU tensors it runs the plain version beside
 it. The benches' loop-and-perturb timing harness is not ported: the card
 is timed with CUDA events (``chip_smoke.py``). u32 words are held in int32
 tensors (their bit patterns) here.
@@ -30,18 +35,28 @@ tensors (their bit patterns) here.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .. import cuda
 from .. import modops as mo
 from .plane_commit import plane_dot, plane_dot_mma, split_k
 
-__all__ = ["plane_dot", "plane_dot_mma", "dma_checksum", "int_gemm", "bf16_gemm", "bitcast_u8", "merge_minor"]
+__all__ = ["plane_dot", "plane_dot_mma", "dma_checksum", "int_gemm", "int_gemm_mma", "bf16_gemm", "bitcast_u8",
+           "merge_minor"]
 
 _GEMM_TYPES = {torch.int8: 0, torch.uint8: 1}
 _BLOCKS_PER_SM = 4  # DMA checksum blocks per SM
+_GEMM_WIDTHS = (8, 64, 128, 192)  # the Hopper GEMM's row-group widths n
+_GEMM_SMALL_M = 512  # up to this M the GEMM takes row groups of 64 (more blocks)
+_GEMM_COLS = 128  # the columns of B a block of the Hopper GEMM owns (csrc: 4 Cfg::WT)
+_GEMM_MIN_SPLIT_K = 256  # the least K a split of the Hopper GEMM takes
+_GEMM_MAX_SPLIT = 64  # the most splits: the last split to arrive adds the others
+_GEMM_CONSUMERS = 256  # consumer threads a block (csrc: GEMM_THREADS)
 
 
+@functools.lru_cache(maxsize=None)
 def _sms(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
@@ -99,14 +114,22 @@ def bf16_gemm_plain(a, b):
     return torch.matmul(a.double(), b.double()).to(torch.float32)
 
 
-def _gemm_kernel(a, b, type_code: int, out_dtype):
-    dev = a.device
-    if b.device != dev or not (a.is_contiguous() and b.is_contiguous()):
-        raise ValueError("int_gemm: contiguous a and b on one device expected")
+def _gemm_shape(a, b):
+    """(M, K, N) of a [M, K] @ b [K, N] on one device, or raise."""
+    if b.device != a.device:
+        raise ValueError("int_gemm: a and b on one device expected")
     M, K = a.shape
     K2, N = b.shape
     if K != K2:
         raise ValueError(f"int_gemm: {tuple(a.shape)} @ {tuple(b.shape)}")
+    return M, K, N
+
+
+def _gemm_kernel(a, b, type_code: int, out_dtype):
+    dev = a.device
+    M, K, N = _gemm_shape(a, b)
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("int_gemm: contiguous a and b expected")
     ksplit = split_k(-(-M // 64) * -(-N // 64), K, _sms(dev))
     out = (torch.zeros if ksplit > 1 else torch.empty)((M, N), dtype=out_dtype, device=dev)
     vec = a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0 and K % 16 == 0 and N % 16 == 0
@@ -119,11 +142,108 @@ def _gemm_kernel(a, b, type_code: int, out_dtype):
     return out
 
 
-def int_gemm(a, b):
-    """Kernel C, instances s8 and u8: a [M, K] @ b [K, N] -> int32 [M, N]
-    (both int8 or both uint8)."""
+def gemm_groups(m: int):
+    """The Hopper GEMM's row groups for ``m`` rows of A: (groups, n). Up to
+    _GEMM_SMALL_M rows, groups of 64 (of 8 for m <= 8), so that a small,
+    launch-bound GEMM spreads over more blocks; above, the fewest groups of
+    at most 192 rows, n the least instantiated width that holds an equal
+    share (m 1728: nine of 192)."""
+    if m <= _GEMM_WIDTHS[0]:
+        return 1, _GEMM_WIDTHS[0]
+    if m <= _GEMM_SMALL_M:
+        return -(-m // 64), 64
+    groups = -(-m // _GEMM_WIDTHS[-1])
+    per = -(-m // groups)
+    return groups, next(w for w in _GEMM_WIDTHS if w >= per)
+
+
+def gemm_split_k(tiles: int, k: int, sms: int) -> int:
+    """K splits of the Hopper GEMM: as many as fill the card's SMs in one
+    wave (one block an SM), each at least _GEMM_MIN_SPLIT_K deep, at most
+    _GEMM_MAX_SPLIT (the last split reads every other's partial). Above
+    one split, tiles x splits <= sms."""
+    return max(1, min(sms // tiles, k // _GEMM_MIN_SPLIT_K, _GEMM_MAX_SPLIT))
+
+
+@functools.lru_cache(maxsize=None)
+def _gemm_plan(m: int, n: int, k: int, sms: int):
+    """(row-group width, K splits) of the Hopper GEMM at m x k x n."""
+    groups, width = gemm_groups(m)
+    return width, gemm_split_k(groups * -(-n // _GEMM_COLS), k, sms)
+
+
+# (device, stream) -> the Hopper GEMM's split workspace and tile counters, and their pointers
+_workspaces: dict = {}
+
+
+def _gemm_workspace(dev, stream: int):
+    """Pointers to the Hopper GEMM's split workspace and tile counters,
+    allocated once per device and stream: a split K means tiles x splits <=
+    SMs (``gemm_split_k``), so SMs slots of the widest tile's partial and
+    SMs counters always do. The counters start at 0 and every launch
+    leaves them 0; launches on one stream run in order, and a launch on
+    another stream gets its own."""
+    key = (dev, stream)
+    if key not in _workspaces:
+        sms = _sms(dev)
+        ws = torch.empty(sms * _GEMM_WIDTHS[-1] // 2 * _GEMM_CONSUMERS, dtype=torch.int32, device=dev)
+        counters = torch.zeros(sms, dtype=torch.int32, device=dev)
+        _workspaces[key] = (ws, counters, ws.data_ptr(), counters.data_ptr())
+    return _workspaces[key][2:]
+
+
+def _tma_rows(x):
+    """(tensor, pointer, row stride in bytes) of ``x`` itself when its rows
+    start 16 bytes apart at a 16-byte aligned pointer (what a TMA tensor map
+    takes), else of a copy in such storage (a layout copy: the same
+    values)."""
+    s0, s1 = x.stride()
+    p = x.data_ptr()
+    if s1 == 1 and s0 % 16 == 0 and p % 16 == 0:
+        return x, p, s0
+    rows, cols = x.shape
+    out = torch.empty((rows, -(-cols // 16) * 16), dtype=x.dtype, device=x.device)[:, :cols]
+    out.copy_(x)
+    return out, out.data_ptr(), out.stride(0)
+
+
+def _gemm_sm90(a, b):
+    dev = a.device
+    M, K, N = _gemm_shape(a, b)
+    a, pa, lda = _tma_rows(a)
+    b, pb, ldb = _tma_rows(b)
+    n, ksplit = _gemm_plan(M, N, K, _sms(dev))
+    stream = cuda.stream_handle(dev)
+    ws, counters = _gemm_workspace(dev, stream)
+    out = torch.empty((M, N), dtype=torch.int32, device=dev)
+    code = cuda.kernel("int_gemm_sm90")(
+        pa, lda, pb, ldb, out.data_ptr(), M, N, K, _GEMM_TYPES[a.dtype], ksplit, n, ws, counters, stream,
+    )
+    cuda.check(code, "int_gemm_sm90")
+    cuda.LAUNCHES["int_gemm_sm90"] += 1
+    return out
+
+
+def _gemm_operands(a, b):
     if a.dtype != b.dtype or a.dtype not in _GEMM_TYPES:
         raise ValueError(f"int_gemm: int8 or uint8 operands expected, got {a.dtype} and {b.dtype}")
+
+
+def int_gemm(a, b):
+    """Kernel C, instances s8 and u8: a [M, K] @ b [K, N] -> int32 [M, N]
+    (both int8 or both uint8), on the card the Hopper GEMM
+    (``int_gemm_sm90_kernel.cu``)."""
+    _gemm_operands(a, b)
+    if a.device.type == "cpu":
+        return int_gemm_plain(a, b)
+    return _gemm_sm90(a, b)
+
+
+def int_gemm_mma(a, b):
+    """``int_gemm``'s function on kernel C's first design
+    (``int_gemm_kernel.cu``, mma.sync): the Hopper GEMM's in-call baseline,
+    launched by no path."""
+    _gemm_operands(a, b)
     if a.device.type == "cpu":
         return int_gemm_plain(a, b)
     return _gemm_kernel(a, b, _GEMM_TYPES[a.dtype], torch.int32)
@@ -131,7 +251,8 @@ def int_gemm(a, b):
 
 def bf16_gemm(a, b):
     """Kernel C, instance bf16: uint8 a [M, K] @ b [K, N], the values taken
-    as bf16, summed in float32 -> float32 [M, N]."""
+    as bf16, summed in float32 -> float32 [M, N], on the first design
+    (``int_gemm_kernel.cu``)."""
     if a.dtype != torch.uint8 or b.dtype != torch.uint8:
         raise ValueError("bf16_gemm: uint8 operands expected")
     if a.device.type == "cpu":

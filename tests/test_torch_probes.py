@@ -125,3 +125,47 @@ def test_bitcast_and_merge_are_byte_exact():
 def test_gemm_refuses_mixed_types():
     with pytest.raises(ValueError, match="int8 or uint8"):
         pp.int_gemm(torch.zeros((2, 2), dtype=torch.int8), torch.zeros((2, 2), dtype=torch.uint8))
+
+
+@pytest.mark.parametrize("kmajor", [False, True])
+def test_plane_dot_mma_baseline_refuses_planes_only(dot_inputs, kmajor):
+    """``plane_dot_mma``, the mma.sync baseline that chip_smoke.py times in
+    turns with the Hopper dot, takes the full and dot-only modes only:
+    ``planes_only`` stays ``plane_dot``'s."""
+    a, w = dot_inputs
+    lhs = torch.from_numpy(np.ascontiguousarray(a.transpose(0, 2, 1)) if kmajor else a)
+    with pytest.raises(ValueError, match="no mode"):
+        tpc.plane_dot_mma(lhs, t32(w), "planes_only", kmajor)
+
+
+@pytest.mark.parametrize("m,k,n,groups,width,splits", [
+    (256, 2048, 256, 4, 64, 8),  # P4 i8exact: groups of 64, eight splits
+    (8, 1 << 15, 128, 1, 8, 64),  # M = 8: one n = 8 group, the most splits
+    (1728, 1 << 15, 384, 9, 192, 4),  # P4 dotspeed: 27 tiles, four splits
+    (1728, 1 << 15, 1536, 9, 192, 1),  # 108 tiles fill the card: no split
+    (128, 256, 128, 2, 64, 1),  # P5 dot_u8: K too short to split
+    (600, 4096, 64, 4, 192, 16),  # above _GEMM_SMALL_M: the fewest groups of at most 192
+])
+def test_gemm_plan(m, k, n, groups, width, splits):
+    """The Hopper GEMM's plan at 132 SMs (an H100's): row groups, their width
+    and the K splits; a split K keeps tiles x splits within one wave, which
+    the once-allocated workspace and counters rely on."""
+    assert pp.gemm_groups(m) == (groups, width)
+    tiles = groups * -(-n // 128)
+    ks = pp.gemm_split_k(tiles, k, 132)
+    assert ks == splits
+    assert ks == 1 or tiles * ks <= 132
+    assert pp._gemm_plan(m, n, k, 132) == (width, splits)
+
+
+@pytest.mark.parametrize("rows,cols,offset", [(5, 90, 0), (4, 48, 0), (3, 32, 1)])
+def test_tma_rows_gives_16_byte_rows_with_the_same_values(rows, cols, offset):
+    """``_tma_rows`` hands the Hopper GEMM an operand whose rows start 16
+    bytes apart at a 16-byte aligned pointer, with that pointer and row
+    stride: the tensor itself where it already is so, else a copy of its
+    values."""
+    x = torch.arange(rows * cols + offset, dtype=torch.uint8)[offset:].view(rows, cols)
+    y, p, s0 = pp._tma_rows(x)
+    assert (p, s0) == (y.data_ptr(), y.stride(0))
+    assert torch.equal(y, x) and y.stride(1) == 1 and y.stride(0) % 16 == 0 and y.data_ptr() % 16 == 0
+    assert (y.data_ptr() == x.data_ptr()) == (cols % 16 == 0 and x.data_ptr() % 16 == 0)
