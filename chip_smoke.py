@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive latticefold_torch's main paths on one NVIDIA GPU and check them.
 
-  python3 chip_smoke.py             # every path, about 12 min of command time
+  python3 chip_smoke.py             # every path, about 13 min of command time
   python3 chip_smoke.py --profile   # and one more Stark prove under the profiler (about 3 min)
 
 The paths: one NIFS fold per ring through ``nifs.prove`` / ``nifs.verify``,
@@ -92,7 +92,16 @@ Phases (any failure raises and the script exits non-zero):
    lanes) beside it; for the SIMT CRT and the commit kernels the 32-bit
    multiply-adds (two per 32x32 -> 64 limb product, nl^2 limb products per
    F_q product) at the card's 32-bit rate outside the tensor cores (the
-   commit kernels' lane floor beside it).
+   commit kernels' lane floor beside it). The Poseidon kernel
+   (``poseidon_kernel.cu``, the device transcript's permutation) against
+   its plain version (``transcript.device.permute_plain``) on the card,
+   one permutation and one with a rate chunk added first, and a mixed
+   absorb / squeeze schedule of the device sponge on the card against the
+   same on the CPU (resting at index == rate, switching modes, a
+   challenge, a short challenge); its ms a permutation (cold L2) beside
+   its bound and its latency bound (the launch floor of a one-element
+   fill timed in the call, and the round chain's dependent multiply-adds
+   at 4 cycles each and the card's maximum SM clock).
 3. For each ring's fold: one prove with the launch counts reset just before
    it (the tensor-core CRT 2K + 1, the Hopper dot 2 and the diagonal
    epilogue 2 launches per prove, and no other kernel: the SIMT CRT, the
@@ -105,7 +114,13 @@ Phases (any failure raises and the script exits non-zero):
    small fixture folded on the card must give the same proof and folded
    accumulator bytes (``serialization.serialize_proof`` /
    ``serialize_lcccs``) as on the CPU, for Goldilocks over a two-step
-   chain (both steps' proofs). The native
+   chain (both steps' proofs). Frog's fold runs once more through
+   ``nifs.device_step.DeviceNIFS`` (``run_device_nifs``): its device part
+   under ``torch.cuda.set_sync_debug_mode("error")``, its launches counted
+   (the tensor-core CRT 4K + 4, the Hopper dot 2, the diagonal epilogue 2,
+   the Poseidon kernel once per permutation of the counted prove's host
+   transcript), and its proof bytes, folded accumulator, witness and
+   transcript state equal to the counted prove's. The native
    (C++) Poseidon sponge must have built for the rings with q < 2^64. Peak
    device memory is printed. With ``--profile``, one more Stark prove runs
    under the profiler (device busy s, device kernels, idle share; about 3
@@ -115,7 +130,8 @@ Phases (any failure raises and the script exits non-zero):
    ``setup_chain``, ``fold_steps``, ``prove_step``) on Goldilocks at
    DP_GOLDILOCKS with the fold phase's instance (wit_len 4096, x_len 1,
    kappa 9, Ajtai seed 7): 2 steps, each folding the fresh instance into
-   the accumulator of the step before. Each step's prove is counted on its
+   the accumulator of the step before (its host transcript's permutations
+   counted). Each step's prove is counted on its
    own and must launch the tensor-core CRT 31, the Hopper dot 2 and the
    diagonal epilogue 2 times and nothing else; step 1's proof bytes must
    equal the fold phase's counted prove's; every proof and accumulator
@@ -124,9 +140,16 @@ Phases (any failure raises and the script exits non-zero):
    prover's accumulator after each; w_2 must open acc_2.cm; and step 2,
    proved again from the serialized acc_1 and w_1's digits
    (``serialize_lcccs``, ``serialize_witness_f``,
-   ``Witness.from_f_coeff``), must give the same proof bytes. Recorded:
-   each step's prove seconds, proof bytes (raw and zlib), peak device
-   memory and the memory held at its start; the verify seconds.
+   ``Witness.from_f_coeff``), must give the same proof bytes (its host
+   syncs counted, sync debug mode "warn"). Recorded: each step's prove
+   seconds, proof bytes (raw and zlib), peak device memory and the memory
+   held at its start; the verify seconds. Then 3e.
+3e. The chain of 3b through ``DeviceNIFS`` (``e2e.setup_chain(...,
+   fused=True)``): each step's device part under sync debug mode "error",
+   its host syncs counted, its launches those of Frog's DeviceNIFS fold
+   with this step's permutations, and its proof bytes, folded
+   accumulator, witness and transcript state equal to 3b's step (step 1's
+   proof is the fold phase's); prove s beside 3b's.
 3c. Moderate b: Goldilocks at DP_GOLDILOCKS_B16 (b 16, K 4, a degree-32
    folding sumcheck) on the fold phase's instance: one counted prove
    (the tensor-core CRT 2K + 1 = 9, the Hopper dot 2, the diagonal
@@ -147,9 +170,13 @@ Phases (any failure raises and the script exits non-zero):
    diagonal epilogue 2, nothing else), verified, w0 opens, peak device
    memory under 90 % of the card's, prove s, verify s, peak and the
    memory held at its start recorded.
-4. LatticeFold+ (``latticefold_torch.plus``) on Frog; every prove is
-   counted and must launch the tensor-core CRT L + 3 and the Hopper commit
-   kernel 2L + 1 times for L folded instances, and nothing else (the first
+4. LatticeFold+ (``latticefold_torch.plus``) on Frog; its sumchecks take
+   ``plus.sumcheck.prove_device`` on the card, each round loop under sync
+   debug mode "error"; every prove is counted and must launch the
+   tensor-core CRT L + 3 + 3 log n times (an ICRT of each round message of
+   the three ring-mode sumchecks), the Hopper commit kernel 2L + 1 times
+   for L folded instances and the Poseidon kernel once per permutation of
+   the four device sumchecks' schedules, and nothing else (the first
    commit kernel 0; ``ComR1CS.new``: 2 and 1); each records prove s, the
    host seconds in the sponge, in the
    subprotocols and in the costliest host loops (t(z), the split into
@@ -163,7 +190,13 @@ Phases (any failure raises and the script exits non-zero):
        ``commit_batch_fused`` (kernels A and B, off this path) counted and
        against the Hopper commit kernel at the same shapes, then one prove
        (L = 1), the port's verifier on a fresh
-       transcript, verify s and proof bytes (raw and zlib).
+       transcript, verify s and proof bytes (raw and zlib); then the same
+       prove on a fresh prover with the host-transcript sumchecks
+       (``prove_host``: crt_tc L + 3, no Poseidon kernel), which must give
+       the same bytes, its seconds and parts recorded beside; then two
+       pairs more in turns (host then device, device then host), each
+       with the same bytes, and each prover's median of three prove s and
+       of its parts.
    4b. The reference's accumulation test (``PLUS_MULTI``: n 2^15, k 4,
        kappa 1): the same kernel checks at Nb 1, 2, 3 and 64, then 3
        rounds on one prover (L = 3 from round 2), each verified by one
@@ -172,9 +205,11 @@ Phases (any failure raises and the script exits non-zero):
    4c. The tests' small fixture (``PLUS_SMALL``: n 2^13, k 1) proved on
        the card (verified) and on the CPU: equal ``serialize_plus_proof``
        bytes, whose SHA-256 is the JAX prover's (``PLUS_SMALL_SHA256``).
-5. Print the ``kernels`` JSON line (one entry per kernel and fold path, the
+5. Print the ``kernels`` JSON line (also written to
+   chiprun_out/chip_smoke_kernels.json; one entry per kernel and fold path,
+   the DeviceNIFS paths of Frog's fold and of 3e's step 1 included, the
    SIMT CRT, the item-per-thread epilogue and both commit kernels marked
-   off the fold paths, the CRT and both commit kernels for 4a and 4b (4b
+   off the fold paths, the Poseidon kernel off the modular ones, the CRT and both commit kernels for 4a and 4b (4b
    with round 2's launches; the first commit kernel at 0), per kernel, mode
    and shape of phase 1b, and both commit kernels at bench.py's shapes and
    two slices), then
@@ -226,6 +261,9 @@ CPU_WORKER_THREADS = 4  # torch threads of the worker that makes the CPU halves 
 CHAIN = ("goldilocks", 9, 2)
 CHAIN_RESUME_AFTER = 1
 SMALL_CHAIN_STEPS = 2
+# phase 3: the ring whose fold also runs once through DeviceNIFS (phase 3e
+# runs the chain's ring, CHAIN[0], that way)
+DEVICE_NIFS_FOLD = "frog"
 # phase 3c, moderate b: the fold phase's instance of this ring and kappa at
 # this preset (its small fixtures are left out for the time limit, PERF.md
 # section 4)
@@ -258,6 +296,7 @@ BENCH_COMMIT = ("goldilocks", 9, 1 << 15, 1, (16, 64))
 # the two-slice batch commit: bench.py's ring, kappa and Nb 16 at n 2^16
 TWO_SLICE_COMMIT = ("goldilocks", 9, 1 << 16, 16)
 PROBE_C, PROBE_MPAD, PROBE_K = 8, 224, 1 << 15  # the probes' commit-dot shape
+POSEIDON_IDX = 7  # phase 2: the rate index at which the timed permutation's chunk is added
 
 
 def log(msg):
@@ -433,6 +472,99 @@ def check_crt(name, ring, n, device, flush, wit_len=WIT_LEN):
     return results
 
 
+def poseidon_shape(ring) -> str:
+    from latticefold_torch.transcript.poseidon import get_config
+
+    cfg = get_config(ring.q)
+    return f"t={cfg.rate + cfg.capacity} nl={ring.nl} chunk={cfg.rate - POSEIDON_IDX}"
+
+
+def sponge_schedule(ring, vals):
+    """A mixed schedule on a device sponge (on ``vals``' device) exported
+    from a host transcript after a tag: absorbs that fill the rate (resting
+    at index == rate), a squeeze (a switch of mode), an absorb of 45 values
+    (a switch back, crossing the rate twice), a challenge and its
+    re-absorb, a short challenge, a squeeze across a permutation. Returns
+    every output and the final (state, index, absorbing), on the CPU."""
+    from latticefold_torch.transcript import Transcript
+    from latticefold_torch.transcript import device as dtr
+
+    host = Transcript(ring)
+    host.absorb_tag(b"poseidon")
+    sp = dtr.TraceSponge(ring, *dtr.export_state(ring, host, vals.device))
+    fill = sp.rate - sp.index
+    sp.absorb(vals[:fill])
+    if sp.index != sp.rate:
+        raise AssertionError("the schedule does not rest at index == rate")
+    outs = [sp.squeeze(3)]
+    sp.absorb(vals[fill : fill + 45])
+    c = sp.get_challenge()
+    sp.absorb_field_element(c)
+    outs += [c, dtr.short_challenge_trace(sp), sp.squeeze(41)]
+    return [o.cpu() for o in outs], (sp.state.cpu(), sp.index, sp.absorbing)
+
+
+def max_clock_mhz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def check_poseidon(name, ring, device, flush):
+    """Phase 2 for the Poseidon kernel (``csrc/poseidon_kernel.cu``) at one
+    ring: one permutation, and one with a chunk added at rate index
+    POSEIDON_IDX, against the plain version (``permute_plain``) on the same
+    card inputs; the mixed ``sponge_schedule`` on the card against the same
+    on the CPU (the plain version); the kernel timed (``time_ms``, cold L2)
+    beside the plain version and a launch of a one-element fill (the launch
+    floor of this call). Bound: the bytes (4 B a limb: state, chunk, ARK,
+    MDS, output) and the 32-bit multiply-adds (2 nl^2 a Montgomery product:
+    4 a lane's s-box, t^2 + 3t the MDS products and reductions, each round)
+    at the card's rates; beside it the latency bound the kernel's design
+    faces: the larger of the launch floor and the round chain (dependent
+    32-bit multiply-adds along one lane: 6 Montgomery products and t
+    accumulations of 2 nl a round, 4 cycles each at the card's maximum SM
+    clock). Returns the record."""
+    import torch
+
+    from latticefold_torch.transcript import device as dtr
+    from latticefold_torch.transcript.poseidon import get_config
+
+    cfg = get_config(ring.q)
+    t, rounds, nl = cfg.rate + cfg.capacity, cfg.full_rounds + cfg.partial_rounds, ring.nl
+    k = cfg.rate - POSEIDON_IDX
+    state = rand_field(ring, (t,), 60, device)
+    chunk = rand_field(ring, (k,), 61, device)
+    err = max_abs_err(f"poseidon [{name}] one permutation", dtr._permute_kernel(ring, state, None, 0),
+                      dtr.permute_plain(ring, state))
+    err += max_abs_err(f"poseidon [{name}] chunk at rate index {POSEIDON_IDX}",
+                       dtr._permute_kernel(ring, state, chunk, POSEIDON_IDX),
+                       dtr.permute_plain(ring, state, chunk, POSEIDON_IDX))
+    vals = rand_field(ring, (80,), 62, device)
+    card_outs, card_end = sponge_schedule(ring, vals)
+    cpu_outs, cpu_end = sponge_schedule(ring, vals.cpu())
+    for i, (a, b) in enumerate(zip(card_outs + [card_end[0]], cpu_outs + [cpu_end[0]])):
+        err += max_abs_err(f"poseidon [{name}] schedule output {i} (card against the CPU's plain sponge)", a, b)
+    if card_end[1:] != cpu_end[1:]:
+        raise AssertionError(f"poseidon [{name}]: the schedule's bookkeeping differs between the card and the CPU")
+    ms = time_ms(lambda: dtr._permute_kernel(ring, state, chunk, POSEIDON_IDX), 50, flush)
+    plain_ms = time_ms(lambda: dtr.permute_plain(ring, state, chunk, POSEIDON_IDX), 3, flush)
+    one = torch.zeros(1, dtype=torch.int64, device=device)
+    floor_ms = time_ms(lambda: one.zero_(), 50, flush)
+    n_values = t + k + rounds * t + t * t + t
+    n_products = 4 * (cfg.full_rounds * t + cfg.partial_rounds) + rounds * (t * t + 3 * t)
+    b = bound(ring, n_values, n_products)
+    clock = max_clock_mhz()
+    chain_ms = rounds * (6 * 2 * nl * nl + t * 2 * nl) * 4 / (clock * 1e6) * 1e3
+    rec = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, library_ms=None, launch_floor_ms=floor_ms,
+               chain_ms=chain_ms, latency_bound_ms=max(floor_ms, chain_ms), max_sm_clock_mhz=clock, **b)
+    log(f"[kernels] poseidon[{name}] {poseidon_shape(ring)}: {ms:.4f} ms a permutation; bound {b['bound_ms']:.6f} ms "
+        f"({b['bound_by']}), latency bound {rec['latency_bound_ms']:.4f} ms (launch floor {floor_ms:.4f}, round "
+        f"chain {chain_ms:.4f}); plain {plain_ms:.2f} ms; exact against the plain version, and the card's schedule "
+        "against the CPU's")
+    return rec
+
+
 def check_kernels(name, dp, scheme, device, wit_len=WIT_LEN):
     """Phase 2 for one ring: each kernel against its plain version at the
     path's shapes. Returns {(kernel, shape): numbers}."""
@@ -447,6 +579,7 @@ def check_kernels(name, dp, scheme, device, wit_len=WIT_LEN):
         shape = f"kappa={scheme.kappa} n={n} Nb={Nb}"
         results[("commit_sm90", shape)], results[("commit", shape)] = check_commit(name, scheme, Nb, seed, device,
                                                                                    flush)
+    results[("poseidon", poseidon_shape(ring))] = check_poseidon(name, ring, device, flush)
     del flush
     torch.cuda.empty_cache()
     return results
@@ -556,6 +689,143 @@ def sponge_timer(sponge_cls, acc: dict):
             setattr(sponge_cls, k, fn)
 
 
+@contextlib.contextmanager
+def host_permutations(sponge_cls, ring):
+    """Counts the permutations of the host sponges of ``sponge_cls`` while the
+    block runs: each sponge's absorb and squeeze_native calls replayed on a
+    ``transcript.device.GhostSponge`` of ``ring`` (a sponge first seen in the
+    block is taken to be fresh, as a new Transcript's is). Yields a function
+    giving the count so far."""
+    from latticefold_torch.transcript import device as dtr
+
+    saved = {k: getattr(sponge_cls, k) for k in ("absorb", "squeeze_native")}
+    seen = {}  # id -> (sponge, ghost): the sponge is kept, so no id is reused
+
+    def counter(sp):
+        if id(sp) not in seen:
+            seen[id(sp)] = (sp, dtr.GhostSponge(ring, 0, True))
+        return seen[id(sp)][1]
+
+    def absorb(self, elements):
+        counter(self).absorb(len(elements))
+        return saved["absorb"](self, elements)
+
+    def squeeze_native(self, n):
+        counter(self).squeeze(n)
+        return saved["squeeze_native"](self, n)
+
+    sponge_cls.absorb, sponge_cls.squeeze_native = absorb, squeeze_native
+    try:
+        yield lambda: sum(g.perms for _, g in seen.values())
+    finally:
+        for k, fn in saved.items():
+            setattr(sponge_cls, k, fn)
+
+
+@contextlib.contextmanager
+def sync_debug(mode):
+    """torch.cuda's sync debug mode ("warn", "error") while the block runs."""
+    import torch
+
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(mode)
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
+def no_sync(fn):
+    """``fn`` run with the sync debug mode at "error": a host synchronization
+    inside it (an ``.item()``, a read of the device, a synchronous copy from
+    the host) raises."""
+    def run(*args, **kw):
+        with sync_debug("error"):
+            return fn(*args, **kw)
+    return run
+
+
+@contextlib.contextmanager
+def count_syncs(acc: dict):
+    """Counts in ``acc["n"]`` the host synchronizations that torch reports
+    (sync debug mode "warn": one warning each) while the block runs."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        with sync_debug("warn"):
+            yield acc
+    acc["n"] = sum(1 for w in caught if "synchroniz" in str(w.message))
+
+
+def state_of(transcript):
+    """A transcript's sponge state as (ints, index, absorbing)."""
+    ints, index, absorbing = transcript.snapshot_state()
+    return [int(v) for v in ints], index, absorbing
+
+
+def witness_digest(ring, w) -> str:
+    """SHA-256 of a witness's f, f_coeff, f_hat and w_ccs limbs."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in ("f", "f_coeff", "f_hat", "w_ccs"):
+        h.update(getattr(w, k).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def device_nifs_launches(dp, n, perms) -> dict:
+    """The launches of one ``DeviceNIFS.prove`` at Ajtai width ``n`` whose
+    transcript permutes ``perms`` times: per decomposition K digit CRTs, the
+    statement split's ICRT and K CRTs and the batch commit (a Hopper dot
+    per 2^15-term slice, one diagonal epilogue); the rho CRT and the folded
+    witness's ICRT; a Poseidon kernel per permutation."""
+    from latticefold_torch.rings import plane_commit
+
+    slices = -(-n // plane_commit._K_SLICE)
+    return {"crt_tc": 4 * dp.K + 4, "plane_dot_sm90": 2 * slices, "plane_epilogue_diag": 2, "poseidon": perms}
+
+
+def run_device_nifs(label, ring, ccs, dp, scheme, acc, w_acc, cm_i, wit, want: dict):
+    """One ``DeviceNIFS.prove`` (its device part ``_trace`` under sync debug
+    "error", the whole prove counted under "warn"), its launches counted:
+    ``device_nifs_launches`` with ``want["perms"]`` (the modular prove's
+    host permutations). Its proof bytes, folded accumulator bytes, witness
+    digest and transcript state must equal ``want``'s (the modular prove's).
+    Returns the record."""
+    import torch
+
+    from latticefold_torch import cuda, serialization as ser
+    from latticefold_torch.nifs.device_step import DeviceNIFS
+    from latticefold_torch.transcript import Transcript
+
+    dn = DeviceNIFS(ccs, dp, scheme)
+    dn._trace = no_sync(dn._trace)
+    t, syncs = Transcript(ring), {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    with count_syncs(syncs):
+        folded, w0, proof = dn.prove(acc, w_acc, cm_i, wit, t)
+        torch.cuda.synchronize()
+    prove_s = time.perf_counter() - t0
+    launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+    expected = device_nifs_launches(dp, scheme.n, want["perms"])
+    if launches != expected:
+        raise AssertionError(f"DeviceNIFS [{label}]: launches {launches}, expected {expected}")
+    got = dict(proof=ser.serialize_proof(ring, proof), acc=ser.serialize_lcccs(ring, folded),
+               witness=witness_digest(ring, w0), state=state_of(t))
+    for k, v in got.items():
+        if v != want[k]:
+            raise AssertionError(f"DeviceNIFS [{label}]: the {k} differs from the modular prover's")
+    rec = dict(prove_s=prove_s, syncs=syncs["n"], launches=launches, peak_bytes=torch.cuda.max_memory_allocated())
+    log(f"[device nifs {label}] prove {prove_s:.3f} s, {syncs['n']} host syncs in the prove (none in its device "
+        f"part: sync debug mode error), launches {launches}; proof, folded accumulator, witness and transcript "
+        f"state equal the modular prover's")
+    return rec
+
+
 def small_fold(name, device, steps=1):
     """The tests' small fixture (kappa = 4, seed 7) for ``name`` folded
     ``steps`` times on ``device`` at the fold phase's preset (each step
@@ -660,11 +930,13 @@ def prove_launches(dp, n) -> dict:
 
 
 def run_fold(name, dp, scheme, reps, device, profile=False, label=None, big_m=None,
-             expand_nvars=BIGM_EXPAND_NVARS, expect_big_m=False):
+             expand_nvars=BIGM_EXPAND_NVARS, expect_big_m=False, device_nifs=False):
     """Phase 3 for one ring: the fold at WIT_LEN, X_LEN, as
     benches/sweep_e2e.py sets it up, on the path ``big_m`` asks for (None:
-    the port's rule), which must be the big-m path iff ``expect_big_m``.
-    Returns a dict of results; raises on any failed check."""
+    the port's rule), which must be the big-m path iff ``expect_big_m``;
+    with ``device_nifs``, the same fold once more through ``DeviceNIFS``
+    (``run_device_nifs``). Returns a dict of results; raises on any failed
+    check."""
     import torch
 
     import latticefold_torch.nifs as nifs
@@ -696,8 +968,8 @@ def run_fold(name, dp, scheme, reps, device, profile=False, label=None, big_m=No
     log(f"[fold {label}] wit_len={WIT_LEN} m={ccs.m} n={scheme.n} kappa={scheme.kappa} {dp}: setup "
         f"{setup_s:.2f} s ({sponge_cls.__name__})")
 
-    def prove():
-        return nifs.prove(acc, wit, cm_i, wit, Transcript(ring), ccs, scheme, dp, big_m=big_m,
+    def prove(transcript=None):
+        return nifs.prove(acc, wit, cm_i, wit, transcript or Transcript(ring), ccs, scheme, dp, big_m=big_m,
                           expand_nvars=expand_nvars)
 
     # the main path, counted: every kernel of the path must launch in it,
@@ -706,10 +978,13 @@ def run_fold(name, dp, scheme, reps, device, profile=False, label=None, big_m=No
     live = torch.cuda.memory_allocated(device)
     cuda.reset_launches()
     sponge = {"s": 0.0}
+    transcript = Transcript(ring)
     t0 = time.perf_counter()
-    with sponge_timer(sponge_cls, sponge), bigm_calls() as calls:
-        folded, w0, proof = prove()
+    with sponge_timer(sponge_cls, sponge), bigm_calls() as calls, \
+            host_permutations(sponge_cls, ring) as perms:
+        folded, w0, proof = prove(transcript)
         torch.cuda.synchronize()
+        perms = perms()
     first_s = time.perf_counter() - t0
     launches = {k: v for k, v in cuda.LAUNCHES.items() if v}  # and no other kernel
     path = "big-m" if calls[0] else "standard"
@@ -743,6 +1018,12 @@ def run_fold(name, dp, scheme, reps, device, profile=False, label=None, big_m=No
     check_peak(f"fold {label}", peak, device)
     log(f"[fold {label}] timed prove s {prove_s}; peak device memory {peak} B ({reserved} B reserved; "
         f"{live} B held at the counted prove's start)")
+    dnifs = None
+    if device_nifs:
+        want = dict(proof=serialization.serialize_proof(ring, proof), acc=serialization.serialize_lcccs(ring, folded),
+                    witness=witness_digest(ring, w0), state=state_of(transcript), perms=perms)
+        dnifs = run_device_nifs(label, ring, ccs, dp, scheme, acc, wit, cm_i, wit, want)
+        dnifs["modular_prove_s"] = first_s
 
     # one decomposition batch against the commit kernel: the digit witnesses
     # of the prove's right side, committed by commit_batch, must give the
@@ -757,7 +1038,7 @@ def run_fold(name, dp, scheme, reps, device, profile=False, label=None, big_m=No
     out = dict(preset=str(dp), m=ccs.m, n=scheme.n, kappa=scheme.kappa, path=path, setup_s=setup_s,
                first_prove_s=first_s, sponge_s=sponge["s"], prove_s=prove_s, verify_s=verify_s,
                peak_bytes=peak, reserved_bytes=reserved, live_bytes=live, launches=launches,
-               proof_bytes=serialization.serialize_proof(ring, proof))
+               permutations=perms, device_nifs=dnifs, proof_bytes=serialization.serialize_proof(ring, proof))
     if profile:
         out["profile"] = profile_prove(name, prove)
     return out
@@ -803,14 +1084,19 @@ def run_chain_phase(device, fold_proof: bytes):
         if i == CHAIN_RESUME_AFTER:
             checkpoint.update(acc=acc_bytes, f=ser.serialize_witness_f(ring, w_acc.f_coeff))
         accs.append(acc_bytes)
+        done = sum(r["permutations"] for r in rec)
         rec.append(dict(step=i, prove_s=step.prove_s, proof_bytes=len(proof),
                         proof_zlib_bytes=len(zlib.compress(proof)), peak_bytes=step.peak_bytes,
-                        live_bytes=step.live_bytes, launches=step.launches, proof=proof))
+                        live_bytes=step.live_bytes, launches=step.launches, permutations=perms() - done,
+                        want=dict(proof=proof, acc=acc_bytes, witness=witness_digest(ring, w_acc),
+                                  state=step.transcript_state)))
         log(f"[chain {name}] step {i}: prove {step.prove_s:.3f} s, proof {len(proof)} B "
             f"({rec[-1]['proof_zlib_bytes']} B zlib), peak device memory {step.peak_bytes} B "
             f"({step.live_bytes} B held at its start), launches {step.launches}; round trips hold")
 
-    res = e2e.fold_steps(s, steps, on_step)
+    sponge_cls = type(Transcript(ring).sponge)
+    with host_permutations(sponge_cls, ring) as perms:
+        res = e2e.fold_steps(s, steps, on_step)
 
     t0 = time.perf_counter()
     vacc = s.acc0
@@ -829,21 +1115,65 @@ def run_chain_phase(device, fold_proof: bytes):
     acc = ser.deserialize_lcccs(ring, checkpoint["acc"])
     f_coeff = ser.deserialize_witness_f(ring, checkpoint["f"], device)
     w_acc = Witness.from_f_coeff(ring, dp, f_coeff, n_pad=s.ccs.m)
-    _, _, again = e2e.prove_step(s, acc, w_acc)
+    syncs = {}
+    with count_syncs(syncs):
+        _, _, again = e2e.prove_step(s, acc, w_acc)
     if again.launches != expected:
         raise AssertionError(f"chain: the resumed step launched {again.launches}, expected {expected}")
-    if ser.serialize_proof(ring, again.proof) != rec[CHAIN_RESUME_AFTER]["proof"]:
+    if ser.serialize_proof(ring, again.proof) != rec[CHAIN_RESUME_AFTER]["want"]["proof"]:
         raise AssertionError(f"chain: step {CHAIN_RESUME_AFTER + 1} resumed from the checkpoint "
                              "gives another proof")
     log(f"[chain {name}] step {CHAIN_RESUME_AFTER + 1} resumed from the checkpoint "
         f"({len(checkpoint['acc'])} + {len(checkpoint['f'])} B): the same proof bytes "
-        f"(prove {again.prove_s:.3f} s, launches {again.launches})")
-    for r in rec:
-        del r["proof"]
+        f"(prove {again.prove_s:.3f} s, launches {again.launches}, {syncs['n']} host syncs)")
     del s, acc, w_acc, f_coeff, again
     torch.cuda.empty_cache()
-    return dict(ring=name, kappa=kappa, steps=rec, verify_s=verify_s,
+    return dict(ring=name, kappa=kappa, steps=rec, verify_s=verify_s, resumed_syncs=syncs["n"],
                 checkpoint_bytes=dict(lcccs=len(checkpoint["acc"]), witness_f=len(checkpoint["f"])))
+
+
+def run_fused_chain_phase(device, chain: dict):
+    """Phase 3e: the chain of phase 3b (``CHAIN``) through ``DeviceNIFS``
+    (``e2e.setup_chain(..., fused=True)``), each step by
+    ``run_device_nifs``'s checks: its device part raises on any host sync,
+    its launches are ``device_nifs_launches`` with the modular step's
+    permutations, and its proof bytes (step 1's the fold phase's too),
+    folded accumulator, witness and transcript state are those of phase
+    3b's step. Pops each step's ``want`` from ``chain``. Returns the
+    record."""
+    import torch
+
+    from latticefold_torch import e2e, serialization as ser
+
+    name, kappa, steps = CHAIN
+    s = e2e.setup_chain(name, WIT_LEN, X_LEN, kappa, device, fused=True)
+    s.fused._trace = no_sync(s.fused._trace)
+    ring = s.ring
+    acc, w_acc, rec = s.acc0, s.wit, []
+    for i in range(1, steps + 1):
+        want = chain["steps"][i - 1].pop("want")
+        want["perms"] = chain["steps"][i - 1]["permutations"]
+        syncs = {}
+        with count_syncs(syncs):
+            acc, w_acc, step = e2e.prove_step(s, acc, w_acc)
+        expected = device_nifs_launches(s.dp, s.scheme.n, want["perms"])
+        if step.launches != expected:
+            raise AssertionError(f"fused chain step {i}: launches {step.launches}, expected {expected}")
+        got = dict(proof=ser.serialize_proof(ring, step.proof), acc=ser.serialize_lcccs(ring, acc),
+                   witness=witness_digest(ring, w_acc), state=step.transcript_state)
+        for k, v in got.items():
+            if v != want[k]:
+                raise AssertionError(f"fused chain step {i}: the {k} differs from phase 3b's step {i}")
+        rec.append(dict(step=i, prove_s=step.prove_s, modular_prove_s=chain["steps"][i - 1]["prove_s"],
+                        syncs=syncs["n"], launches=step.launches, peak_bytes=step.peak_bytes))
+        log(f"[fused chain {name}] step {i}: prove {step.prove_s:.3f} s (modular {rec[-1]['modular_prove_s']:.3f} "
+            f"s), {syncs['n']} host syncs in the prove (none in its device part), launches {step.launches}, "
+            f"peak {step.peak_bytes} B; proof, accumulator, witness and transcript state equal phase 3b's")
+    if w_acc.commit(s.scheme) != acc.cm:
+        raise AssertionError("fused chain: the last witness does not open the last commitment")
+    del s, acc, w_acc
+    torch.cuda.empty_cache()
+    return dict(ring=name, kappa=kappa, steps=rec)
 
 
 def profile_prove(name, prove):
@@ -1519,6 +1849,8 @@ KERNEL_INFO = {
                          source="latticefold_torch/csrc/probe_kernels.cu"),
     "bitcast": dict(name="bitcast_u8_kernel", route="cuda", source="latticefold_torch/csrc/probe_kernels.cu"),
     "merge": dict(name="merge_minor_kernel", route="cuda", source="latticefold_torch/csrc/probe_kernels.cu"),
+    "poseidon": dict(name="poseidon_kernel", route="cuda", source="latticefold_torch/csrc/poseidon_kernel.cu",
+                     replaces="latticefold_tpu/transcript/device.py:74"),
 }
 # probe (the first two words of its label) -> its kernel, and the TPU kernel it replaces
 PROBE_KERNEL = {
@@ -1603,8 +1935,11 @@ def kernel_entries(label, name, n, Nb, kres, launches, route_rec, kappa=None):
     else:
         kappa = route_rec["kappa"]
         entries = route_entries(label, route_rec, launches)
+    from latticefold_torch.rings.construct import get_ring
+
     for key, main in (("crt_tc", f"crt N={n}"), ("crt", f"crt N={n}"),
-                      ("commit_sm90", f"kappa={kappa} n={n} Nb={Nb}"), ("commit", f"kappa={kappa} n={n} Nb={Nb}")):
+                      ("commit_sm90", f"kappa={kappa} n={n} Nb={Nb}"), ("commit", f"kappa={kappa} n={n} Nb={Nb}"),
+                      ("poseidon", poseidon_shape(get_ring(name)))):
         if (key, main) not in kres:
             continue
         r = kres[(key, main)]
@@ -1619,6 +1954,9 @@ def kernel_entries(label, name, n, Nb, kres, launches, route_rec, kappa=None):
             extra = {k: r[k] for k in ("lane_floor_ms", "old_ms", "route_ms", "pass1_ms", "pass2_ms")}
         elif key == "commit":
             extra = dict(lane_floor_ms=r["lane_floor_ms"], new_ms=r["new_ms"])
+        elif key == "poseidon":
+            extra = {k: r[k] for k in ("launch_floor_ms", "chain_ms", "latency_bound_ms", "max_sm_clock_mhz")}
+            extra["note"] = "replaces no Pallas kernel: the JAX package's permute is XLA"
         entries.append(dict(
             info, ring=name, launches=launches.get(key, 0), max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
@@ -1719,13 +2057,61 @@ def run_bigm_phase(device, std_fold, std_proof, kres_std, plane_rec):
     return dict(forced_m15=forced, m18=big, kernels={f"{k}:{sh}": v for (k, sh), v in kres.items()}), entries
 
 
-def plus_launches(L: int) -> dict:
-    """The launches of one ``PlusProver.prove`` that folds L instances: an
-    ICRT in each ``RgInstance.from_f`` and the ICRT and two CRTs of
-    ``decompose`` on the tensor-core CRT; two batch commits in each
-    ``from_f`` and one in ``decompose`` on the Hopper commit kernel; nothing
+def plus_launches(L: int, n: int, perms: int) -> dict:
+    """The launches of one ``PlusProver.prove`` of one instance of width n
+    that folds L instances: an ICRT in each ``RgInstance.from_f``, the ICRT
+    and two CRTs of ``decompose``, and an ICRT of each round message of the
+    three ring-mode sumchecks (the linearization's and ``cm``'s two, log n
+    rounds each: ``plus.sumcheck.prove_device`` absorbs coefficients) on the
+    tensor-core CRT; two batch commits in each ``from_f`` and one in
+    ``decompose`` on the Hopper commit kernel; a Poseidon kernel for each of
+    the ``perms`` permutations of the sumchecks' device transcripts; nothing
     else (the first commit kernel 0)."""
-    return {"crt_tc": L + 3, "commit_sm90": 2 * L + 1}
+    return {"crt_tc": L + 3 + 3 * (n - 1).bit_length(), "commit_sm90": 2 * L + 1, "poseidon": perms}
+
+
+@contextlib.contextmanager
+def plus_device_rounds(acc: dict):
+    """While the block runs, every ``plus.sumcheck._device_rounds`` (the
+    round loop of ``prove_device``) runs under sync debug "error", and
+    ``acc["perms"]`` counts the permutations its schedule implies (a
+    ``transcript.device.GhostSponge`` from the device sponge's bookkeeping:
+    per round an absorb of (degree + 1) d coefficients, a squeeze and an
+    absorb of the challenge), ``acc["calls"]`` the calls."""
+    from latticefold_torch.plus import sumcheck as psc
+    from latticefold_torch.transcript import device as dtr
+
+    orig = psc._device_rounds
+
+    def rounds(ring, sp, mles, nvars, degree, comb, consts):
+        g = dtr.GhostSponge(ring, sp.index, sp.absorbing)
+        for _ in range(nvars):
+            g.absorb((degree + 1) * ring.d)
+            g.squeeze(1)
+            g.absorb(1)
+        acc["perms"] = acc.get("perms", 0) + g.perms
+        acc["calls"] = acc.get("calls", 0) + 1
+        return no_sync(orig)(ring, sp, mles, nvars, degree, comb, consts)
+
+    psc._device_rounds = rounds
+    try:
+        yield acc
+    finally:
+        psc._device_rounds = orig
+
+
+@contextlib.contextmanager
+def plus_host_sumchecks():
+    """The LatticeFold+ sumchecks on the host transcript (``prove_host``)
+    while the block runs, whatever the tables' device."""
+    from latticefold_torch.plus import sumcheck as psc
+
+    orig = psc.prove
+    psc.prove = psc.prove_host
+    try:
+        yield
+    finally:
+        psc.prove = orig
 
 
 def plus_setup(n, k, kappa, B, device):
@@ -1797,13 +2183,15 @@ def plus_timers(acc: dict):
             setattr(owner, name, fn)
 
 
-def plus_round(label, prover, c, L, device):
-    """One ``PlusProver.prove`` of the instance ``c`` that folds L instances
-    (the accumulator's and c), counted: crt_tc L + 3, commit 2L + 1 and
-    nothing else. Times the sponge and the prover's parts (``plus_timers``).
-    Returns (proof, record)."""
+def plus_round(label, prover, c, L, device, host_sumchecks=False):
+    """One ``PlusProver.prove`` of the instance ``c`` that folds L instances,
+    counted (``plus_launches``; with ``host_sumchecks`` the sumchecks take
+    ``prove_host``: no Poseidon kernel, no ICRT of round messages). Times the
+    sponge and the prover's parts (``plus_timers``). Returns (proof,
+    record)."""
     import torch
 
+    from latticefold_torch import cuda
     from latticefold_torch.native import NativeSponge
 
     sponge_cls = type(prover.transcript.sponge)
@@ -1812,18 +2200,31 @@ def plus_round(label, prover, c, L, device):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     live = torch.cuda.memory_allocated(device)
-    sponge, parts = {"s": 0.0}, {}
+    sponge, parts, dev_rounds = {"s": 0.0}, {}, {}
+    ctx = plus_host_sumchecks() if host_sumchecks else plus_device_rounds(dev_rounds)
+    cuda.reset_launches()
     t0 = time.perf_counter()
-    with sponge_timer(sponge_cls, sponge), plus_timers(parts):
-        proof, launches = counted(f"LatticeFold+ prove [{label}]", lambda: prover.prove([c]), plus_launches(L))
+    with sponge_timer(sponge_cls, sponge), plus_timers(parts), ctx:
+        proof = prover.prove([c])
+        torch.cuda.synchronize()
     prove_s = time.perf_counter() - t0
+    launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+    n = c.f.shape[0]
+    expected = plus_launches(L, n, dev_rounds.get("perms", 0))
+    if host_sumchecks:
+        expected = {"crt_tc": L + 3, "commit_sm90": 2 * L + 1}
+    elif dev_rounds.get("calls") != 4:
+        raise AssertionError(f"LatticeFold+ prove [{label}]: {dev_rounds.get('calls')} device sumchecks, expected 4")
+    if launches != expected:
+        raise AssertionError(f"LatticeFold+ prove [{label}]: launches {launches}, expected {expected}")
     peak = torch.cuda.max_memory_allocated(device)
     check_peak(f"LatticeFold+ [{label}]", peak, device)
     rec = dict(L=L, prove_s=prove_s, sponge_s=sponge["s"], parts_s=parts, peak_bytes=peak,
-               reserved_bytes=torch.cuda.max_memory_reserved(device), live_bytes=live, launches=launches)
-    log(f"[plus {label}] prove {prove_s:.3f} s (L={L}; host sponge {sponge['s']:.3f} s; parts "
-        f"{ {k: round(v, 3) for k, v in parts.items()} }), peak device memory {peak} B ({live} B held at its "
-        f"start), launches {launches}")
+               reserved_bytes=torch.cuda.max_memory_reserved(device), live_bytes=live, launches=launches,
+               sumcheck="host" if host_sumchecks else "device")
+    log(f"[plus {label}] prove {prove_s:.3f} s (L={L}, {rec['sumcheck']} sumchecks; host sponge {sponge['s']:.3f} s; "
+        f"parts { {k: round(v, 3) for k, v in parts.items()} }), peak device memory {peak} B ({live} B held at "
+        f"its start), launches {launches}")
     return proof, rec
 
 
@@ -1894,11 +2295,38 @@ def run_plus_bench(device, kres_crt):
     PlusVerifier(ring=ring, M=c.x.matrices, transcript=PlusTranscript(ring), params=pparams).verify(proof)
     verify_s = time.perf_counter() - t0
     blob = ser.serialize_plus_proof(ring, proof)
+    # the same prove with the host-transcript sumchecks, after it: the same bytes
+    host_prover = PlusProver(scheme=scheme, M=c.x.matrices, transcript=PlusTranscript(ring), params=pparams)
+    host_proof, host_rnd = plus_round(f"{label} host sumchecks", host_prover, c, 1, device, host_sumchecks=True)
+    if ser.serialize_plus_proof(ring, host_proof) != blob:
+        raise AssertionError(f"[plus {label}] the host-sumcheck prove gives other bytes than the device one")
+    del host_prover, host_proof
+    # two pairs more in turns, host first and then device first: each
+    # prover's median of three, with the order of the first pair undone
+    runs = {"device": [rnd], "host": [host_rnd]}
+    for order in (("host", "device"), ("device", "host")):
+        for kind in order:
+            p = PlusProver(scheme=scheme, M=c.x.matrices, transcript=PlusTranscript(ring), params=pparams)
+            got, r = plus_round(f"{label} {kind} sumchecks, in turns", p, c, 1, device,
+                                host_sumchecks=kind == "host")
+            if ser.serialize_plus_proof(ring, got) != blob:
+                raise AssertionError(f"[plus {label}] the {kind}-sumcheck prove in turns gives other bytes")
+            runs[kind].append(r)
+            del p, got
+    turns = {kind: dict(prove_s=[r["prove_s"] for r in rs], median_s=statistics.median(r["prove_s"] for r in rs),
+                        parts_median_s={k: statistics.median(r["parts_s"].get(k, 0.0) for r in rs)
+                                        for k in rs[0]["parts_s"]})
+             for kind, rs in runs.items()}
+    log(f"[plus {label}] in turns (device, host; host, device; device, host): device sumchecks "
+        f"{turns['device']['prove_s']} s (median {turns['device']['median_s']:.3f}), host sumchecks "
+        f"{turns['host']['prove_s']} s (median {turns['host']['median_s']:.3f}); medians of the parts: "
+        f"device { {k: round(v, 3) for k, v in turns['device']['parts_median_s'].items()} }, "
+        f"host { {k: round(v, 3) for k, v in turns['host']['parts_median_s'].items()} }")
     if ser.serialize_plus_proof(ring, ser.deserialize_plus_proof(ring, blob)) != blob:
         raise AssertionError(f"[plus {label}] the proof does not survive a round trip")
     rec = dict(n=n, k=k, kappa=kappa, B=B, l=pparams.lin.decomp.l, setup_s=setup_s, verify_s=verify_s,
                proof_bytes=len(blob), proof_zlib_bytes=len(zlib.compress(blob)), route=route, **rnd,
-               kernels={f"{kk}:{sh}": v for (kk, sh), v in kres.items()})
+               host_sumchecks=host_rnd, turns=turns, kernels={f"{kk}:{sh}": v for (kk, sh), v in kres.items()})
     log(f"[plus {label}] verify {verify_s:.3f} s: the port's verifier accepts; proof {len(blob)} B "
         f"({rec['proof_zlib_bytes']} B zlib)")
     entries = kernel_entries(label, "frog", n, k * ring.d, {**kres_crt, **kres}, rnd["launches"], None, kappa)
@@ -2009,7 +2437,7 @@ def run_plus_phase(device, kres_frog=None, cpu_small=None):
         flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
         kres_frog = check_crt("frog plus", get_ring("frog"), n, device, flush, n // k)
         del flush
-    kres_crt = {key: v for key, v in kres_frog.items() if key[0] == "crt_tc"}
+    kres_crt = {key: v for key, v in kres_frog.items() if key[0] in ("crt_tc", "poseidon")}
     record = {}
     record["bench"], entries = run_plus_bench(device, kres_crt)
     torch.cuda.empty_cache()
@@ -2041,7 +2469,8 @@ def run_paths(device, smi, cpu_jobs, profile):
         ring = get_ring(name)
         scheme = AjtaiScheme(ring, kappa, WIT_LEN * dp.L, seed=7, device=device)
         kres = kres_by_ring[name] = check_kernels(name, dp, scheme, device)
-        fold = folds[name] = run_fold(name, dp, scheme, reps, device, profile=profile and name == PROFILED)
+        fold = folds[name] = run_fold(name, dp, scheme, reps, device, profile=profile and name == PROFILED,
+                                      device_nifs=name == DEVICE_NIFS_FOLD)
         steps = SMALL_CHAIN_STEPS if name == CHAIN[0] else 1
         card, card_s = small_fold_timed(name, device, steps)
         cpu, cpu_s = cpu_jobs[name].get(CPU_WAIT_S)
@@ -2057,12 +2486,20 @@ def run_paths(device, smi, cpu_jobs, profile):
         record["rings"][name] = dict(kernels={f"{k}:{s}": v for (k, s), v in kres.items()}, fold=fold)
         entries += kernel_entries(name, name, scheme.n, dp.K - 1, kres, fold["launches"],
                                   record["plane_commit"][f"{name} fold"])
+        if fold["device_nifs"]:
+            entries += kernel_entries(f"{name} DeviceNIFS", name, scheme.n, dp.K - 1, kres,
+                                      fold["device_nifs"]["launches"], record["plane_commit"][f"{name} fold"])
         del scheme
         torch.cuda.empty_cache()
 
-    # phase 3b: the IVC chain
+    # phase 3b: the IVC chain, and 3e: the chain through DeviceNIFS
     record["chain"] = run_chain_phase(device, chain_fold_proof)
     record["chain"]["card"] = smi
+    record["fused_chain"] = run_fused_chain_phase(device, record["chain"])
+    n_chain = WIT_LEN * getattr(params, PATHS[CHAIN[0]][0]).L
+    entries += kernel_entries(f"{CHAIN[0]} DeviceNIFS chain", CHAIN[0], n_chain,
+                              getattr(params, PATHS[CHAIN[0]][0]).K - 1, kres_by_ring[CHAIN[0]],
+                              record["fused_chain"]["steps"][0]["launches"], record["plane_commit"][f"{CHAIN[0]} fold"])
     # phase 3c: moderate b
     record["moderate_b"], ent = run_moderate_b_phase(device, kres_by_ring[MODERATE_B[0]], record["plane_commit"])
     entries += ent
@@ -2125,6 +2562,8 @@ def main() -> int:
     # phase 5: the record
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
         json.dump(record, fh, indent=1)
+    with open(os.path.join(OUT_DIR, "chip_smoke_kernels.json"), "w") as fh:
+        json.dump({"kernels": entries}, fh, indent=1)
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,8 +9,9 @@ rebuilt when any source or header is newer than it.
 
 Every launcher returns the ``cudaGetLastError`` code of its launches and the
 wrappers raise when it is not 0. ``LAUNCHES`` counts launches per kernel:
-the wrappers in ``rings/ops.py``, ``rings/mxu.py``, ``rings/plane_commit.py``
-and ``rings/plane_probes.py`` add one where they launch and nowhere else.
+the wrappers in ``rings/ops.py``, ``rings/mxu.py``, ``rings/plane_commit.py``,
+``rings/plane_probes.py`` and ``transcript/device.py`` add one where they
+launch and nowhere else.
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ SOURCES = {
     "int_gemm": "int_gemm_kernel.cu",
     "int_gemm_sm90": "int_gemm_sm90_kernel.cu",
     "probe": "probe_kernels.cu",
+    "poseidon_kernel": "poseidon_kernel.cu",  # not "poseidon": native/ builds libposeidon.so here
 }
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -62,6 +64,7 @@ _ARGTYPES = {
     "dma_checksum": ("probe", "lf_dma_checksum", [_P, _LL, _P, _LL, _P, _I, _I, _P]),
     "bitcast": ("probe", "lf_bitcast_u8", [_P, _LL, _P, _P]),
     "merge": ("probe", "lf_merge_minor", [_P, _I, _I, _I, _P, _P]),
+    "poseidon": ("poseidon_kernel", "lf_poseidon", [_P, _P, _I, _I, _P, _P, _P] + [_I] * 4 + [_U64P, _P]),
 }
 
 LAUNCHES = {name: 0 for name in _ARGTYPES}

@@ -10,16 +10,18 @@ commitment.
 
   python -m latticefold_torch.e2e [--ring goldilocks] [--wit-len 512]
                                   [--x-len 1] [--kappa 4] [--steps 1]
-                                  [--device cuda]
+                                  [--device cuda] [--fused]
 
 It runs on the card unless ``--device cpu`` is given; without a card it
 raises. Each fold takes the path ``nifs.use_big_m`` chooses from the ring,
 m and the device's memory (the big-m path from m 2^18 on for Goldilocks
 on an 80 GB card, e.g. ``--wit-len 32768``), and each step's line names
-it. The JAX example's ``--fused`` (the single-dispatch device prover)
-has no counterpart here. ``run_chain`` does the work and returns each
-step's proof, prove seconds, kernel launches and peak device memory, for
-callers that check a chain rather than print one.
+it. ``--fused`` folds through ``nifs.device_step.DeviceNIFS`` instead, the
+prover with the transcript on the device (the same proofs; presets with
+B < 2^16: not Stark's), as the JAX example's ``--fused`` does. ``run_chain``
+does the work and returns each step's proof, prove seconds, kernel
+launches and peak device memory, for callers that check a chain rather
+than print one.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from .arith.witness import Witness
 from .commitment import AjtaiScheme
 from .device import resolve
 from .nifs import linearization
+from .nifs.device_step import DeviceNIFS
 from .params import PRESETS, DecompositionParams
 from .rings import ops as rops
 from .rings.construct import Ring, get_ring
@@ -61,6 +64,7 @@ class ChainSetup:
     wit: Witness
     acc0: LCCCS
     setup_s: float
+    fused: Optional[DeviceNIFS] = None  # the device-transcript prover, when asked for
 
 
 @dataclass
@@ -70,7 +74,8 @@ class Step:
     launches: dict  # kernel -> launches in this step's prove (none on the CPU)
     peak_bytes: Optional[int]  # peak device memory of this step (None on the CPU)
     live_bytes: Optional[int]  # device memory held when the step began (None on the CPU)
-    big_m: bool  # the path nifs.prove chose (nifs.use_big_m)
+    big_m: bool  # the path nifs.prove chose (nifs.use_big_m); False when fused
+    transcript_state: tuple  # the step's transcript after the prove: (sponge ints, index, absorbing)
 
 
 @dataclass
@@ -87,10 +92,11 @@ def _sync(dev: torch.device):
 
 
 def setup_chain(ring_name: str = "goldilocks", wit_len: int = 512, x_len: int = 1,
-                kappa: int = 4, device=None) -> ChainSetup:
+                kappa: int = 4, device=None, fused: bool = False) -> ChainSetup:
     """The identity R1CS of ``wit_len`` columns with a witness and statement
     of ones, the Ajtai scheme of seed 7, and the accumulator bootstrapped by
-    one linearization (examples/e2e.rs:77-92)."""
+    one linearization (examples/e2e.rs:77-92). ``fused``: fold through
+    ``DeviceNIFS`` (raises ValueError for a preset it does not take)."""
     dev = resolve(device)
     ring = get_ring(ring_name)
     dp = PRESETS[ring_name]
@@ -104,8 +110,9 @@ def setup_chain(ring_name: str = "goldilocks", wit_len: int = 512, x_len: int = 
     wit = Witness.from_w_ccs(ring, dp, rops.to_device(ring, w_host, dev), n_pad=ccs.m)
     cm_i = CCCS(cm=wit.commit(scheme), x_ccs=x_ccs)
     acc0, _ = linearization.prove(cm_i, wit, Transcript(ring), ccs)
+    dn = DeviceNIFS(ccs, dp, scheme) if fused else None
     _sync(dev)
-    return ChainSetup(ring, dp, ccs, scheme, cm_i, wit, acc0, time.perf_counter() - t0)
+    return ChainSetup(ring, dp, ccs, scheme, cm_i, wit, acc0, time.perf_counter() - t0, dn)
 
 
 def prove_step(s: ChainSetup, acc: LCCCS, w_acc: Witness):
@@ -116,15 +123,20 @@ def prove_step(s: ChainSetup, acc: LCCCS, w_acc: Witness):
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
         live = torch.cuda.memory_allocated(dev)
+    transcript = Transcript(s.ring)
     cuda.reset_launches()
     t0 = time.perf_counter()
-    acc, w_acc, proof = nifs.prove(acc, w_acc, s.cm_i, s.wit, Transcript(s.ring), s.ccs, s.scheme, s.dp)
+    if s.fused is not None:
+        acc, w_acc, proof = s.fused.prove(acc, w_acc, s.cm_i, s.wit, transcript)
+    else:
+        acc, w_acc, proof = nifs.prove(acc, w_acc, s.cm_i, s.wit, transcript, s.ccs, s.scheme, s.dp)
     _sync(dev)
     prove_s = time.perf_counter() - t0
     launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
-    big_m = nifs.use_big_m(s.ring.name, s.ccs.m, dev)
-    return acc, w_acc, Step(proof, prove_s, launches, peak, live, big_m)
+    big_m = s.fused is None and nifs.use_big_m(s.ring.name, s.ccs.m, dev)
+    ints, index, absorbing = transcript.snapshot_state()
+    return acc, w_acc, Step(proof, prove_s, launches, peak, live, big_m, ([int(v) for v in ints], index, absorbing))
 
 
 def fold_steps(s: ChainSetup, steps: int,
@@ -147,9 +159,10 @@ def fold_steps(s: ChainSetup, steps: int,
 
 def run_chain(ring_name: str = "goldilocks", wit_len: int = 512, x_len: int = 1,
               kappa: int = 4, steps: int = 1, device=None,
-              on_step: Optional[Callable[[int, LCCCS, Witness, Step], None]] = None) -> ChainResult:
+              on_step: Optional[Callable[[int, LCCCS, Witness, Step], None]] = None,
+              fused: bool = False) -> ChainResult:
     """``setup_chain`` then ``fold_steps``."""
-    return fold_steps(setup_chain(ring_name, wit_len, x_len, kappa, device), steps, on_step)
+    return fold_steps(setup_chain(ring_name, wit_len, x_len, kappa, device, fused), steps, on_step)
 
 
 def verify_chain(s: ChainSetup, proofs) -> LCCCS:
@@ -170,18 +183,23 @@ def main(argv=None) -> int:
     ap.add_argument("--kappa", type=int, default=4)
     ap.add_argument("--steps", type=int, default=1, help="IVC fold steps")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--fused", action="store_true",
+                    help="fold through nifs.device_step.DeviceNIFS (the transcript on the device)")
     args = ap.parse_args(argv)
+    if args.fused and PRESETS[args.ring].B >= 1 << 16:
+        ap.error(f"--fused is not offered for {args.ring}: DeviceNIFS takes B < 2^16, "
+                 f"and the preset's B is {PRESETS[args.ring].B}")
 
     dev = resolve(args.device)
     dp = PRESETS[args.ring]
     print(f"Decomposition parameters: B={dp.B} L={dp.L} b={dp.b} K={dp.K}")
     print(f"ring={args.ring} wit_len={args.wit_len} kappa={args.kappa} device={dev}")
 
-    s = setup_chain(args.ring, args.wit_len, args.x_len, args.kappa, dev)
+    s = setup_chain(args.ring, args.wit_len, args.x_len, args.kappa, dev, args.fused)
     print(f"Setup in {s.setup_s:.3f}s (includes first kernel builds)")
 
     def report(i, acc, w_acc, step):
-        path = "big-m" if step.big_m else "standard"
+        path = "fused" if args.fused else "big-m" if step.big_m else "standard"
         print(f"step {i - 1}: proof generated in {step.prove_s:.3f}s ({path} path)")
 
     res = fold_steps(s, args.steps, report)

@@ -17,9 +17,14 @@ Round messages are ring elements; a scalar value v is absorbed as the
 constant polynomial [v, 0, ..., 0] (coefficient-form absorb). Folding by a
 scalar challenge is a plain Montgomery scale.
 
-The prover is the per-round host-transcript prover on every device: each
-round message is computed over the whole hypercube on the tables' device,
-brought to the host, absorbed, and the challenge folds the tables. The
+Two provers give the same proof. ``prove_host`` computes each round
+message over the whole hypercube on the tables' device, brings it to the
+host, absorbs it, and folds the tables with the challenge. ``prove_device``
+keeps the transcript on the tables' device (``transcript.device``): each
+round message is ICRT'd (ring mode) and absorbed there, and the challenge
+is squeezed there, so no round reads the device. ``prove`` takes the device
+prover for tables on the card and the host prover for tables on the CPU,
+as the JAX package takes its device prover on every accelerator. The
 hypercube is taken in chunks of pairs so that the comb's temporaries stay
 bounded; modular sums are exact, so chunking changes no round message.
 """
@@ -33,6 +38,7 @@ import torch
 
 from .. import modops as mo
 from ..rings import ops as rops
+from ..transcript import device as dtr
 from ..rings.construct import Ring
 from . import coeffring as cr
 from . import mleops
@@ -134,8 +140,75 @@ def prove_host(
     return SumcheckProof(round_evals), challenges, cur[:, 0]
 
 
-# The port has one prover: the host-transcript one, on every device.
-prove = prove_host
+def _absorb_rows(ring: Ring, scalar: bool, evs):
+    """Device round message -> coefficient-form absorb rows [degree+1, d, nl]
+    (Montgomery): a scalar value v is the constant polynomial [v, 0, ...],
+    a ring value is ICRT'd on the device (the order of Ring.icrt_host)."""
+    if scalar:
+        rows = evs.new_zeros((evs.shape[0], ring.d, ring.nl))
+        rows[:, 0] = evs
+        return rows
+    return rops.icrt(ring, evs)
+
+
+def _device_rounds(ring: Ring, sp, mles, nvars: int, degree: int, comb: CombFn, consts):
+    """The rounds of ``prove_device`` on the device sponge ``sp``: each
+    round message's absorb rows, the challenge (one F_q element) squeezed
+    and re-absorbed, the tables folded. Returns (rows [nvars, degree+1, d,
+    nl], chals [nvars, nl], finals [nm, ...]), all on the tables' device."""
+    cur = mles
+    rows_list, chal_list = [], []
+    for _ in range(nvars):
+        rows = _absorb_rows(ring, comb.scalar, _round_evs(ring, comb, degree, cur, consts))
+        sp.absorb(rows.reshape(-1, ring.nl))
+        c = sp.squeeze(1)
+        sp.absorb(c)
+        rows_list.append(rows)
+        chal_list.append(c[0])
+        cur = _fold(ring, cur, c[0])
+    return torch.stack(rows_list), torch.stack(chal_list), cur[:, 0]
+
+
+def prove_device(
+    ring: Ring,
+    transcript: PlusTranscript,
+    mles,
+    nvars: int,
+    degree: int,
+    comb: CombFn,
+    comb_consts=(),
+):
+    """``prove_host`` with the transcript on the tables' device: the same
+    (proof, challenges (ints), final values [nm, ...] on the tables' device)
+    and the same host transcript state afterwards."""
+    if mles.shape[1] != 1 << nvars:
+        raise ValueError(f"tables of {mles.shape[1]} rows for {nvars} variables")
+    fq = ring.fq
+    transcript.absorb_coeffs(cr.cconst(ring, nvars))
+    transcript.absorb_coeffs(cr.cconst(ring, degree))
+    state0, idx0, abs0 = dtr.export_state(ring, transcript, mles.device)
+    sp = dtr.TraceSponge(ring, state0, idx0, abs0)
+    all_rows, chals, finals = _device_rounds(ring, sp, mles, nvars, degree, comb, comb_consts)
+    dtr.import_state(ring, transcript, sp.state, sp.index, sp.absorbing)
+    rows_host = fq.decode(mo.from_mont(fq, all_rows).cpu().numpy())  # [nvars, deg+1, d]
+    round_evals = [[[int(v) for v in rows_host[r, i]] for i in range(degree + 1)] for r in range(nvars)]
+    challenges = mleops.host_ints(ring, chals)
+    return SumcheckProof(round_evals), challenges, finals
+
+
+def prove(
+    ring: Ring,
+    transcript: PlusTranscript,
+    mles,
+    nvars: int,
+    degree: int,
+    comb: CombFn,
+    comb_consts=(),
+):
+    """The scalar-challenge sumcheck prover: ``prove_device`` for tables on
+    the card, ``prove_host`` for tables on the CPU; the same proof bytes."""
+    fn = prove_host if mles.device.type == "cpu" else prove_device
+    return fn(ring, transcript, mles, nvars, degree, comb, comb_consts)
 
 
 def _coeff_eval_lagrange(ring: Ring, evals: Sequence[list], r: int) -> list:

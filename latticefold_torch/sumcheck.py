@@ -16,19 +16,27 @@ plus runtime constants (challenge-derived tensors) -> combined polynomial
 values [M, ncomp, e, nl]. ``prove_host_bigm`` is the same prover with the
 folding sumcheck's f-hat rows kept subfield-compact through the first
 rounds (the big-m path; see the note above it).
+
+``trace_prove`` is the same prover with the transcript on the tables'
+device (``transcript.device``), over an existing device sponge: the round
+messages are absorbed and the challenges squeezed there, so no round reads
+the device. The single-dispatch fold (``nifs.device_step``) runs it twice.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Callable, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from . import modops as mo
 from .poly import mle as mlemod
 from .rings import ops as rops
 from .rings.construct import Ring
+from .device import constant
 from .transcript import Transcript
 
 # ring elements per comb input chunk (nm tables x pairs)
@@ -100,6 +108,49 @@ def prove(
     challenges, round_evals = [], []
     final_vals = _rounds(ring, transcript, mles, nvars, degree, comb, comb_consts, challenges, round_evals)
     return SumcheckProof(round_evals), challenges, final_vals
+
+
+# ---------------------------------------------------------------------------
+# device-transcript prover
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _embed_int_np(ring: Ring, v: int):
+    R = 1 << (32 * ring.nl)
+    vals = np.zeros((ring.ncomp, ring.e), dtype=object)
+    vals[:, 0] = v % ring.q * R % ring.q
+    return ring.fq.encode(vals)
+
+
+@functools.lru_cache(maxsize=None)
+def _embed_int_dev(ring: Ring, v: int, device: torch.device):
+    """Diagonal ring embedding of a small int as a device constant [c, e, nl]."""
+    return constant(_embed_int_np(ring, v), device)
+
+
+def trace_prove(sp, mles, nvars: int, degree: int, comb: Callable, consts=()):
+    """Sumcheck prover over an existing device sponge ``sp``
+    (``transcript.device.TraceSponge``): absorbs nvars and degree, runs all
+    rounds at their natural, shrinking shapes, and leaves ``sp`` at the
+    post-sumcheck duplex state; the absorb / squeeze schedule of
+    ``prove``. Returns (evals [nvars, degree+1, ncomp, e, nl], chals
+    [nvars, e, nl], finals [nm, ncomp, e, nl]), all on the tables' device."""
+    ring = sp.ring
+    dev = mles.device
+    sp.absorb_ring(_embed_int_dev(ring, nvars, dev))
+    sp.absorb_ring(_embed_int_dev(ring, degree, dev))
+    cur = mles
+    evs_list, chal_list = [], []
+    for _ in range(nvars):
+        evs = _round_evs(ring, comb, degree, cur, consts)
+        sp.absorb_ring(evs)
+        c = sp.get_challenge()
+        sp.absorb_field_element(c)
+        evs_list.append(evs)
+        chal_list.append(c)
+        cur = mlemod.fold(ring, cur, c)
+    return torch.stack(evs_list), torch.stack(chal_list), cur.squeeze(1)
 
 
 # ---------------------------------------------------------------------------

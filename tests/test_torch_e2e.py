@@ -2,7 +2,9 @@
 a two-step IVC chain that exits 0, prints the last proof's size (raw and
 zlib) as ``serialization.serialize_proof`` gives it, verifies every step
 and opens the folded commitment; ``run_chain`` returns each step's proof
-and counters, and a chain proves the same bytes each time it is run.
+and counters, and a chain proves the same bytes each time it is run; a
+step folded with ``fused=True`` (``nifs.device_step.DeviceNIFS``, the
+transcript on the device) proves the modular step's bytes.
 Without a card and without ``--device cpu`` the entry point raises
 (tests/test_torch_boundary.py). Tolerance: exact (bytes)."""
 
@@ -56,5 +58,27 @@ def test_run_chain_records_each_step():
 
 
 def test_fused_flag_is_not_offered(capsys):
+    """``--fused`` is not offered for a preset DeviceNIFS does not take
+    (B >= 2^16: Stark's B is 10485760000): the command line refuses it,
+    naming the reason, before any setup."""
     with pytest.raises(SystemExit):
-        e2e.main(["--device", "cpu", "--fused"])
+        e2e.main(["--device", "cpu", "--fused", "--ring", "stark", "--wit-len", WIT_LEN])
+    err = capsys.readouterr().err
+    assert "--fused is not offered for stark" in err and "B < 2^16" in err
+
+
+def test_run_chain_fused_matches_modular():
+    """One step of the chain through DeviceNIFS gives the modular step's
+    proof and accumulator bytes and transcript state; its proof verifies."""
+    ring_name = "frog"
+    fused = e2e.run_chain(ring_name, int(WIT_LEN), 1, 4, steps=1, device="cpu", fused=True)
+    plain = e2e.run_chain(ring_name, int(WIT_LEN), 1, 4, steps=1, device="cpu")
+    ring = fused.setup.ring
+    assert fused.setup.fused is not None and plain.setup.fused is None
+    assert ser.serialize_proof(ring, fused.steps[0].proof) == ser.serialize_proof(ring, plain.steps[0].proof)
+    assert ser.serialize_lcccs(ring, fused.acc) == ser.serialize_lcccs(ring, plain.acc)
+    assert fused.steps[0].transcript_state == plain.steps[0].transcript_state
+    assert fused.steps[0].launches == {} and not fused.steps[0].big_m
+    vacc = e2e.verify_chain(fused.setup, [fused.steps[0].proof])
+    assert ser.serialize_lcccs(ring, vacc) == ser.serialize_lcccs(ring, fused.acc)
+    assert fused.w_acc.commit(fused.setup.scheme) == fused.acc.cm

@@ -2,7 +2,10 @@
 tests/test_nifs.py::setup() (kappa = 4, seed 7): Goldilocks at DP_GOLDILOCKS
 against the JAX prover, two steps of the IVC chain of
 tests/test_nifs.py::test_nifs_second_fold_and_rejection (the second folds
-the fresh instance into the first's folded accumulator and witness), and
+the fresh instance into the first's folded accumulator and witness), the
+same first fold with the transcript on the device
+(``nifs.device_step.DeviceNIFS``; the JAX package's ``DeviceNIFS`` is an
+XLA:CPU compile of hours and is not run), and
 BabyBear (DP_BABYBEAR) and Stark (DP_STARK_E2E)
 folded by the port alone -- its verifier accepts and the folded witness
 opens the folded commitment -- with their comparison against the JAX prover
@@ -37,6 +40,7 @@ from latticefold_torch.arith.ccs import get_test_r1cs as tget_test_r1cs
 from latticefold_torch.arith.ccs import get_test_z_split as tget_test_z_split
 from latticefold_torch.arith.witness import Witness as TWitness
 from latticefold_torch.commitment import AjtaiScheme as TScheme
+from latticefold_torch.nifs.device_step import DeviceNIFS
 from latticefold_torch import params as tparams
 from latticefold_torch.rings.construct import get_ring as tget_ring
 from latticefold_torch.transcript import Transcript as TTranscript
@@ -60,9 +64,10 @@ def _jax_fold(name="goldilocks", preset="DP_GOLDILOCKS"):
     wit = Witness.from_w_ccs(ring, dp, rops.to_device(ring, w_host), n_pad=ccs.m)
     cm_i = CCCS(cm=wit.commit(scheme), x_ccs=x_ccs)
     acc, _ = linearization.prove(cm_i, wit, Transcript(ring), ccs)
-    folded, w0, proof = nifs.prove(acc, wit, cm_i, wit, Transcript(ring), ccs, scheme, dp)
+    transcript = Transcript(ring)
+    folded, w0, proof = nifs.prove(acc, wit, cm_i, wit, transcript, ccs, scheme, dp)
     return dict(ring=ring, ccs=ccs, scheme=scheme, wit=wit, cm_i=cm_i, acc=acc,
-                folded=folded, w0=w0, proof=proof, dp=dp)
+                folded=folded, w0=w0, proof=proof, dp=dp, transcript=transcript)
 
 
 def _port_fold(name="goldilocks", preset="DP_GOLDILOCKS"):
@@ -79,6 +84,12 @@ def _port_fold(name="goldilocks", preset="DP_GOLDILOCKS"):
     folded, w0, proof = tnifs.prove(acc, wit, cm_i, wit, TTranscript(ring), ccs, scheme, dp)
     return dict(ring=ring, ccs=ccs, scheme=scheme, wit=wit, wit_arrays=arrays, cm_i=cm_i,
                 acc=acc, folded=folded, w0=w0, proof=proof, dp=dp)
+
+
+def _state(transcript):
+    """A transcript's sponge state as (ints, index, absorbing)."""
+    ints, index, absorbing = transcript.snapshot_state()
+    return [int(v) for v in ints], index, absorbing
 
 
 def _second_step(f, prove, transcript):
@@ -129,6 +140,18 @@ def test_port_fold_matches_jax():
     # the folded witness opens the folded commitment
     nifs.verify(j["acc"], j["cm_i"], pp, Transcript(j["ring"]), j["ccs"], params.DP_GOLDILOCKS)
     _check_port_accepts(p)
+
+    # the same fold with the transcript on the device (plain permutation on
+    # the CPU): the JAX proof bytes, folded instance and witness, and the
+    # JAX transcript's state after it
+    t = TTranscript(p["ring"])
+    folded, w0, proof = DeviceNIFS(p["ccs"], p["dp"], p["scheme"]).prove(p["acc"], p["wit"], p["cm_i"], p["wit"], t)
+    assert tser.serialize_proof(p["ring"], proof) == serialize_proof(j["ring"], jp)
+    assert tser.serialize_lcccs(p["ring"], folded) == serialize_lcccs(j["ring"], j["folded"])
+    assert (folded.x_w, folded.h) == (j["folded"].x_w, j["folded"].h)
+    for k in ("f", "f_coeff", "f_hat", "w_ccs"):
+        assert np.array_equal(convert.to_numpy(getattr(w0, k)), np.asarray(getattr(j["w0"], k))), k
+    assert _state(t) == _state(j["transcript"])
 
     # step 2 on both sides: a folded accumulator (non-trivial r, v, u, x_w,
     # h) and a folded witness (coefficients over (-B, B)) go in
