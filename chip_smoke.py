@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive latticefold_torch's main paths on one NVIDIA GPU and check them.
 
-  python3 chip_smoke.py             # every path, about 13 min of command time
-  python3 chip_smoke.py --profile   # and one more Stark prove under the profiler (about 3 min)
+  python3 chip_smoke.py              # every path, about 14 min of command time
+  python3 chip_smoke.py --profile    # and one more Stark prove under the profiler (about 3 min)
+  python3 chip_smoke.py --plus-sweep # instead: LatticeFold+ over PLUS_SWEEP (about 17 min)
 
 The paths: one NIFS fold per ring through ``nifs.prove`` / ``nifs.verify``,
 on the identity R1CS of wit_len 4096, x_len 1, with a witness of ones and
@@ -173,14 +174,18 @@ Phases (any failure raises and the script exits non-zero):
 4. LatticeFold+ (``latticefold_torch.plus``) on Frog; its sumchecks take
    ``plus.sumcheck.prove_device`` on the card, each round loop under sync
    debug mode "error"; every prove is counted and must launch the
-   tensor-core CRT L + 3 + 3 log n times (an ICRT of each round message of
-   the three ring-mode sumchecks), the Hopper commit kernel 2L + 1 times
-   for L folded instances and the Poseidon kernel once per permutation of
-   the four device sumchecks' schedules, and nothing else (the first
-   commit kernel 0; ``ComR1CS.new``: 2 and 1); each records prove s, the
-   host seconds in the sponge, in the
+   tensor-core CRT L + 3 + (n_lin + 2) log n times for L folded instances
+   of which n_lin are new (an ICRT of each round message of the ring-mode
+   sumchecks), the Hopper commit kernel L (g + 1) + 1 times (g groups of
+   at most 4 GiB of monomial columns in each instance's range check: 1
+   at every shape of the default run, 2-3 at the sweep's n 2^19 points
+   at k 3-5) and the Poseidon
+   kernel once per permutation of the device sumchecks' schedules, and
+   nothing else (the first commit kernel 0; ``ComR1CS.new``: 2 and 1);
+   each records prove s, the host seconds in the sponge, in the
    subprotocols and in the costliest host loops (t(z), the split into
-   tau, comh), and peak device memory:
+   tau, comh, the transpose products, the sparse matrices' ELL build),
+   peak and reserved device memory and each part's peak:
    4a. The JAX package's bench at its TPU defaults (``PLUS_BENCH``: n
        2^15, k 2, kappa 2, the identity R1CS, z all ones, Ajtai seed 7):
        the Hopper commit kernel against the plain commit, the first commit
@@ -193,10 +198,8 @@ Phases (any failure raises and the script exits non-zero):
        transcript, verify s and proof bytes (raw and zlib); then the same
        prove on a fresh prover with the host-transcript sumchecks
        (``prove_host``: crt_tc L + 3, no Poseidon kernel), which must give
-       the same bytes, its seconds and parts recorded beside; then two
-       pairs more in turns (host then device, device then host), each
-       with the same bytes, and each prover's median of three prove s and
-       of its parts.
+       the same bytes, its seconds and parts recorded beside (the pairs
+       in turns, medians of three, run under ``--plus-sweep``).
    4b. The reference's accumulation test (``PLUS_MULTI``: n 2^15, k 4,
        kappa 1): the same kernel checks at Nb 1, 2, 3 and 64, then 3
        rounds on one prover (L = 3 from round 2), each verified by one
@@ -205,6 +208,25 @@ Phases (any failure raises and the script exits non-zero):
    4c. The tests' small fixture (``PLUS_SMALL``: n 2^13, k 1) proved on
        the card (verified) and on the CPU: equal ``serialize_plus_proof``
        bytes, whose SHA-256 is the JAX prover's (``PLUS_SMALL_SHA256``).
+   4d. The JAX bench's defaults at the top of the reference sweep
+       (``PLUS_TOP``: n 2^19, k 2, kappa 2, L 1): the tensor-core CRT
+       against both plain versions at icrt N = m = 2^18, crt and icrt N =
+       2^19 and the Hopper commit kernel as in 4a at kappa 2, n 2^19, Nb
+       1, 2, 3 and 32; one counted prove (crt_tc 61, commit_sm90 3),
+       verified, its serialization round trip, its peak under 0.9 of the
+       card.
+   4e. (``PLUS_K3``: n 2^15, k 3, kappa 1, two instances in one round;
+       m k < n, so ``ComR1CS.new`` pads f): the commit kernel held at Nb
+       k d = 48, one counted prove, verified, whose bytes must hash to the
+       JAX prover's (``PLUS_K3_SHA256``).
+   With ``--plus-sweep`` instead of the paths: ``plus_peak_sweep``, every
+   point of ``PLUS_SWEEP`` (n 2^15-2^19 at k 2, kappa 2, L 1; at n 2^19
+   L 2, 3, 8, (k, kappa) = (3, 3), (4, 4), (5, 5) at L 1 and (5, 5) at
+   L 8) proved as 4d is, a point that runs out of device memory recorded
+   as such, the commit kernel held at kappa 5, n 2^19 and each Nb the
+   prover gives it there (``PLUS_SWEEP_COMMIT``), then 4a's provers in
+   turns (``plus_bench_turns``); written to
+   chiprun_out/chip_smoke_plus_peaks.json.
 5. Print the ``kernels`` JSON line (also written to
    chiprun_out/chip_smoke_kernels.json; one entry per kernel and fold path,
    the DeviceNIFS paths of Frog's fold and of 3e's step 1 included, the
@@ -291,6 +313,26 @@ PLUS_PEAK_NOISE = 0.01  # 4b: round 3's peak may exceed round 2's by this share
 # (tests/test_torch_plus.py's JAX_PLUS_E2E_SHA256)
 PLUS_SMALL = (1 << 13, 1, 1)
 PLUS_SMALL_SHA256 = "a155fe6c1293ac985ca3b7752773dfffe2fcccb7dd9014b8046dfc8ace221bf0"
+# 4d: 4a's instance at the top of the reference sweep (witness 32K-512K:
+# latticefold-plus/benches/utils/mod.rs:25-50, SURVEY.md section 6), the JAX
+# bench's BENCH_PLUS_N = 2^19 at its default k 2, kappa 2: n, k, kappa (L 1)
+PLUS_TOP = (1 << 19, 2, 2)
+# 4e: n, k, kappa, L instances in one round; m = n // k, f padded to n by
+# ComR1CS.new; B = estimate_bound(d 128, 3, d, k) + 1; and the SHA-256 of
+# the JAX prover's serialize_plus_proof bytes there (tests/test_torch_plus_scale.py)
+PLUS_K3 = (1 << 15, 3, 1, 2)
+PLUS_K3_SHA256 = "20893643c7db97542263d3f81eb3a360326860e15cf51205885aa62a4d74182a"
+# --plus-sweep: (n, k, kappa, L) over the reference sweep's ranges (witness
+# 32K-512K, k 2-5, kappa 2-5, L 2-8: SURVEY.md section 6), on 4a's instance
+PLUS_SWEEP = (
+    [(1 << e, 2, 2, 1) for e in range(15, 20)]
+    + [(1 << 19, 2, 2, L) for L in (2, 3, 8)]
+    + [(1 << 19, k, k, 1) for k in (3, 4, 5)]
+    + [(1 << 19, 5, 5, 8)]
+)
+# the commit kernel's Nb at (kappa 5, n 2^19): decompose's 2, from_f's rest 3,
+# and its monomial columns' groups (k d = 80 in groups of mf_group_cols = 32)
+PLUS_SWEEP_COMMIT = (2, 3, 16, 32)
 # bench.py's headline commit (bench.py:114-151): ring, kappa, n, Ajtai seed, batches
 BENCH_COMMIT = ("goldilocks", 9, 1 << 15, 1, (16, 64))
 # the two-slice batch commit: bench.py's ring, kappa and Nb 16 at n 2^16
@@ -323,15 +365,15 @@ def nvidia_smi_line() -> str:
 
 def rand_field(ring, shape, seed, device):
     """Uniform canonical F_q values as int64 limb tensors [*shape, nl] (valid
-    Montgomery values too), made on the host from ``seed``."""
-    import numpy as np
+    Montgomery values too), made on ``device`` by a generator seeded with
+    ``seed``."""
     import torch
 
-    rng = np.random.default_rng(seed)
-    limbs = rng.integers(0, 1 << 32, size=tuple(shape) + (ring.nl,), dtype=np.uint64)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    limbs = torch.randint(0, 1 << 32, tuple(shape) + (ring.nl,), generator=gen, device=device, dtype=torch.int64)
     top = ring.q >> (32 * (ring.nl - 1))  # below q: the top limb below q's
-    limbs[..., -1] %= np.uint64(top)
-    return torch.from_numpy(limbs.astype(np.int64)).to(device)
+    limbs[..., -1] %= top
+    return limbs
 
 
 def time_ms(fn, reps, flush=None):
@@ -642,13 +684,12 @@ def check_commit(name, scheme, Nb, seed, device, flush):
     ring = scheme.ring
     f = rand_field(ring, (scheme.n, Nb, ring.ncomp, ring.e), seed, device)
     got = mxu.ajtai_commit(ring, scheme.matrix, f)
-    want = commit_plain(ring, scheme.matrix, f)
-    torch.cuda.synchronize()
-    err = int((got != want).sum().item())
+    want = []  # the plain version's output, from its one timed call
+    plain_ms = time_ms(lambda: want.append(commit_plain(ring, scheme.matrix, f)), 1, flush)
+    err = int((got != want[0]).sum().item())
     if err:
         raise AssertionError(f"commit_sm90 [{name}] (Nb={Nb}): {err} limbs differ from the plain version")
     del want, got
-    plain_ms = time_ms(lambda: commit_plain(ring, scheme.matrix, f), 1, flush)
     fcm = pc.empty_batch(ring, scheme.n, Nb, device)
     fcm.copy_(f.permute(2, 0, 3, 1, 4))
     rec = commit_turns(name, scheme, f, fcm, flush)
@@ -2057,17 +2098,25 @@ def run_bigm_phase(device, std_fold, std_proof, kres_std, plane_rec):
     return dict(forced_m15=forced, m18=big, kernels={f"{k}:{sh}": v for (k, sh), v in kres.items()}), entries
 
 
-def plus_launches(L: int, n: int, perms: int) -> dict:
-    """The launches of one ``PlusProver.prove`` of one instance of width n
-    that folds L instances: an ICRT in each ``RgInstance.from_f``, the ICRT
-    and two CRTs of ``decompose``, and an ICRT of each round message of the
-    three ring-mode sumchecks (the linearization's and ``cm``'s two, log n
-    rounds each: ``plus.sumcheck.prove_device`` absorbs coefficients) on the
-    tensor-core CRT; two batch commits in each ``from_f`` and one in
-    ``decompose`` on the Hopper commit kernel; a Poseidon kernel for each of
-    the ``perms`` permutations of the sumchecks' device transcripts; nothing
-    else (the first commit kernel 0)."""
-    return {"crt_tc": L + 3 + 3 * (n - 1).bit_length(), "commit_sm90": 2 * L + 1, "poseidon": perms}
+def plus_launches(L: int, n: int, perms: int, k: int, n_lin: int = 1) -> dict:
+    """The launches of one ``PlusProver.prove`` of ``n_lin`` instances of
+    width n that folds L instances (``n_lin`` of them new) at k digits: an
+    ICRT in each ``RgInstance.from_f``, the ICRT and two CRTs of
+    ``decompose``, and an ICRT of each round message of the ring-mode
+    sumchecks (each linearization's and ``cm``'s two, log n rounds each:
+    ``plus.sumcheck.prove_device`` absorbs coefficients) on the tensor-core
+    CRT; in each ``from_f`` one batch commit per group of at most
+    ``rgchk.mf_group_cols`` of its k d monomial columns and one of the
+    rest, and one in ``decompose``, on the Hopper commit kernel; a Poseidon
+    kernel for each of the ``perms`` permutations of the sumchecks' device
+    transcripts; nothing else (the first commit kernel 0)."""
+    from latticefold_torch.plus import rgchk
+    from latticefold_torch.rings.construct import get_ring
+
+    ring = get_ring("frog")
+    groups = -(-k * ring.d // rgchk.mf_group_cols(ring, n))
+    return {"crt_tc": L + 3 + (n_lin + 2) * (n - 1).bit_length(), "commit_sm90": L * (groups + 1) + 1,
+            "poseidon": perms}
 
 
 @contextlib.contextmanager
@@ -2137,7 +2186,8 @@ def plus_setup(n, k, kappa, B, device):
     ident = SparseMatrix(ring, m, m, [[(1, i)] for i in range(m)])
     mats = r1cs_decomposed_square(ring, ident, ident, ident, n, B, k)
     scheme = AjtaiScheme(ring, kappa, n, seed=7, device=device)
-    z = ops.to_device(ring, [ring.crt_host([1] + [0] * (ring.d - 1))] * m, device)
+    # z all ones: the one element made once and repeated on the device
+    z = ops.to_device(ring, [ring.crt_host([1] + [0] * (ring.d - 1))], device).expand(m, -1, -1, -1).contiguous()
 
     def new():
         return ComR1CS.new(ring, list(mats), z, 1, B, k, scheme)
@@ -2154,14 +2204,20 @@ def plus_timers(acc: dict):
     set check and the openings --, each of ``cm``'s two batched sumchecks
     ``_sumchecker``, ``decomp.decompose``) and its costliest host loops
     (``cm.calculate_t_z``, the split of the commitment into tau
-    ``rgchk.split``, ``cm._comh``)."""
+    ``rgchk.split``, ``cm._comh``) and host loops over n (the transpose
+    products ``SparseMatrix.transpose_mul_scalar_host`` of the set check's
+    and range check's openings, the ELL build ``SparseMatrix._device`` at
+    a matrix's first product, ``r1cs.gadget_decompose_matrix`` in the
+    setup)."""
     import torch
 
+    from latticefold_torch.arith.sparse import SparseMatrix
     from latticefold_torch.plus import cm, decomp, r1cs, rgchk
 
     targets = ((r1cs, "linearize"), (rgchk.RgInstance, "from_f"), (rgchk.Rg, "range_check"),
                (cm, "_sumchecker"), (decomp, "decompose"), (cm, "calculate_t_z"), (rgchk, "split"),
-               (cm, "_comh"))
+               (cm, "_comh"), (SparseMatrix, "transpose_mul_scalar_host"), (SparseMatrix, "_device"),
+               (r1cs, "gadget_decompose_matrix"))
     saved = [(owner, name, owner.__dict__[name]) for owner, name in targets]
 
     def wrap(name, fn):
@@ -2183,12 +2239,57 @@ def plus_timers(acc: dict):
             setattr(owner, name, fn)
 
 
-def plus_round(label, prover, c, L, device, host_sumchecks=False):
-    """One ``PlusProver.prove`` of the instance ``c`` that folds L instances,
-    counted (``plus_launches``; with ``host_sumchecks`` the sumchecks take
-    ``prove_host``: no Poseidon kernel, no ICRT of round messages). Times the
-    sponge and the prover's parts (``plus_timers``). Returns (proof,
-    record)."""
+@contextlib.contextmanager
+def plus_part_peaks(acc: dict, device):
+    """While the block runs, ``acc[name]`` is the peak device memory (bytes
+    allocated) during each part of the LatticeFold+ prover that holds a
+    large tensor (``r1cs.linearize``, ``RgInstance.from_f``,
+    ``Rg.range_check``, ``cm._h_vectors``, ``cm._build_cm_mles``, each
+    ``cm._sumchecker``, ``decomp.decompose``); the peak statistics are reset
+    around each part, so after the block ``acc["all"]`` and
+    ``acc["reserved"]`` hold the block's peaks allocated and reserved."""
+    import torch
+
+    from latticefold_torch.plus import cm, decomp, r1cs, rgchk
+
+    targets = ((r1cs, "linearize"), (rgchk.RgInstance, "from_f"), (rgchk.Rg, "range_check"),
+               (cm, "_h_vectors"), (cm, "_build_cm_mles"), (cm, "_sumchecker"), (decomp, "decompose"))
+    saved = [(owner, name, owner.__dict__[name]) for owner, name in targets]
+    top = {"all": 0, "reserved": 0}
+
+    def fold_in():
+        top["all"] = max(top["all"], torch.cuda.max_memory_allocated(device))
+        top["reserved"] = max(top["reserved"], torch.cuda.max_memory_reserved(device))
+        torch.cuda.reset_peak_memory_stats(device)
+
+    def wrap(name, fn):
+        def measured(*args, **kw):
+            fold_in()
+            try:
+                return fn(*args, **kw)
+            finally:
+                acc[name] = max(acc.get(name, 0), torch.cuda.max_memory_allocated(device))
+                fold_in()
+        return measured
+
+    for owner, name, fn in saved:
+        setattr(owner, name, classmethod(wrap(name, fn.__func__)) if isinstance(fn, classmethod) else wrap(name, fn))
+    try:
+        yield acc
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+        fold_in()
+        acc.update(top)
+
+
+def plus_round(label, prover, c, L, device, host_sumchecks=False, n_lin=1):
+    """One ``PlusProver.prove`` of ``n_lin`` copies of the instance ``c``
+    that folds L instances, counted (``plus_launches``; with
+    ``host_sumchecks`` the sumchecks take ``prove_host``: no Poseidon
+    kernel, no ICRT of round messages). Times the sponge and the prover's
+    parts (``plus_timers``), and takes each part's peak device memory
+    (``plus_part_peaks``). Returns (proof, record)."""
     import torch
 
     from latticefold_torch import cuda
@@ -2200,31 +2301,33 @@ def plus_round(label, prover, c, L, device, host_sumchecks=False):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     live = torch.cuda.memory_allocated(device)
-    sponge, parts, dev_rounds = {"s": 0.0}, {}, {}
+    sponge, parts, dev_rounds, peaks = {"s": 0.0}, {}, {}, {}
     ctx = plus_host_sumchecks() if host_sumchecks else plus_device_rounds(dev_rounds)
     cuda.reset_launches()
     t0 = time.perf_counter()
-    with sponge_timer(sponge_cls, sponge), plus_timers(parts), ctx:
-        proof = prover.prove([c])
+    with sponge_timer(sponge_cls, sponge), plus_timers(parts), plus_part_peaks(peaks, device), ctx:
+        proof = prover.prove([c] * n_lin)
         torch.cuda.synchronize()
     prove_s = time.perf_counter() - t0
     launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
-    n = c.f.shape[0]
-    expected = plus_launches(L, n, dev_rounds.get("perms", 0))
+    n, k = c.f.shape[0], prover.params.lin.decomp.k
+    expected = plus_launches(L, n, dev_rounds.get("perms", 0), k, n_lin)
     if host_sumchecks:
-        expected = {"crt_tc": L + 3, "commit_sm90": 2 * L + 1}
-    elif dev_rounds.get("calls") != 4:
-        raise AssertionError(f"LatticeFold+ prove [{label}]: {dev_rounds.get('calls')} device sumchecks, expected 4")
+        expected = {"crt_tc": L + 3, "commit_sm90": expected["commit_sm90"]}
+    elif dev_rounds.get("calls") != n_lin + 3:
+        raise AssertionError(f"LatticeFold+ prove [{label}]: {dev_rounds.get('calls')} device sumchecks, expected "
+                             f"{n_lin + 3}")
     if launches != expected:
         raise AssertionError(f"LatticeFold+ prove [{label}]: launches {launches}, expected {expected}")
-    peak = torch.cuda.max_memory_allocated(device)
+    peak = peaks.pop("all")
+    reserved = peaks.pop("reserved")
     check_peak(f"LatticeFold+ [{label}]", peak, device)
     rec = dict(L=L, prove_s=prove_s, sponge_s=sponge["s"], parts_s=parts, peak_bytes=peak,
-               reserved_bytes=torch.cuda.max_memory_reserved(device), live_bytes=live, launches=launches,
+               reserved_bytes=reserved, live_bytes=live, parts_peak_bytes=peaks, launches=launches,
                sumcheck="host" if host_sumchecks else "device")
     log(f"[plus {label}] prove {prove_s:.3f} s (L={L}, {rec['sumcheck']} sumchecks; host sponge {sponge['s']:.3f} s; "
         f"parts { {k: round(v, 3) for k, v in parts.items()} }), peak device memory {peak} B ({live} B held at "
-        f"its start), launches {launches}")
+        f"its start; reserved {reserved} B; by part {peaks}), launches {launches}")
     return proof, rec
 
 
@@ -2273,7 +2376,9 @@ def run_plus_bench(device, kres_crt):
     """Phase 4a: ``PLUS_BENCH``. Kernel checks at the path's commit shapes
     (Nb 1, 2, 3 and k d), one counted ``PlusProver.prove`` (L = 1), the
     port's verifier on a fresh transcript, the proof's serialization round
-    trip. Returns (record, kernels JSON entries)."""
+    trip; then the same prove with the host-transcript sumchecks, which
+    must give the same bytes (the pairs in turns are ``plus_bench_turns``,
+    under ``--plus-sweep``). Returns (record, kernels JSON entries)."""
     import zlib
 
     from latticefold_torch import serialization as ser
@@ -2301,32 +2406,11 @@ def run_plus_bench(device, kres_crt):
     if ser.serialize_plus_proof(ring, host_proof) != blob:
         raise AssertionError(f"[plus {label}] the host-sumcheck prove gives other bytes than the device one")
     del host_prover, host_proof
-    # two pairs more in turns, host first and then device first: each
-    # prover's median of three, with the order of the first pair undone
-    runs = {"device": [rnd], "host": [host_rnd]}
-    for order in (("host", "device"), ("device", "host")):
-        for kind in order:
-            p = PlusProver(scheme=scheme, M=c.x.matrices, transcript=PlusTranscript(ring), params=pparams)
-            got, r = plus_round(f"{label} {kind} sumchecks, in turns", p, c, 1, device,
-                                host_sumchecks=kind == "host")
-            if ser.serialize_plus_proof(ring, got) != blob:
-                raise AssertionError(f"[plus {label}] the {kind}-sumcheck prove in turns gives other bytes")
-            runs[kind].append(r)
-            del p, got
-    turns = {kind: dict(prove_s=[r["prove_s"] for r in rs], median_s=statistics.median(r["prove_s"] for r in rs),
-                        parts_median_s={k: statistics.median(r["parts_s"].get(k, 0.0) for r in rs)
-                                        for k in rs[0]["parts_s"]})
-             for kind, rs in runs.items()}
-    log(f"[plus {label}] in turns (device, host; host, device; device, host): device sumchecks "
-        f"{turns['device']['prove_s']} s (median {turns['device']['median_s']:.3f}), host sumchecks "
-        f"{turns['host']['prove_s']} s (median {turns['host']['median_s']:.3f}); medians of the parts: "
-        f"device { {k: round(v, 3) for k, v in turns['device']['parts_median_s'].items()} }, "
-        f"host { {k: round(v, 3) for k, v in turns['host']['parts_median_s'].items()} }")
     if ser.serialize_plus_proof(ring, ser.deserialize_plus_proof(ring, blob)) != blob:
         raise AssertionError(f"[plus {label}] the proof does not survive a round trip")
     rec = dict(n=n, k=k, kappa=kappa, B=B, l=pparams.lin.decomp.l, setup_s=setup_s, verify_s=verify_s,
                proof_bytes=len(blob), proof_zlib_bytes=len(zlib.compress(blob)), route=route, **rnd,
-               host_sumchecks=host_rnd, turns=turns, kernels={f"{kk}:{sh}": v for (kk, sh), v in kres.items()})
+               host_sumchecks=host_rnd, kernels={f"{kk}:{sh}": v for (kk, sh), v in kres.items()})
     log(f"[plus {label}] verify {verify_s:.3f} s: the port's verifier accepts; proof {len(blob)} B "
         f"({rec['proof_zlib_bytes']} B zlib)")
     entries = kernel_entries(label, "frog", n, k * ring.d, {**kres_crt, **kres}, rnd["launches"], None, kappa)
@@ -2422,9 +2506,199 @@ def run_plus_small(device, cpu_job=None):
     return dict(n=n, k=k, kappa=kappa, card_s=card_s, cpu_s=cpu_s, proof_bytes=len(card), sha256=digest)
 
 
+def plus_point(label, n, k, kappa, L, device, commit_nbs=(), setups=None):
+    """One LatticeFold+ point on Frog: ``plus_setup`` at (n, k, kappa) with
+    B = estimate_bound(d 128, 3, d, k) + 1 (kept in ``setups``, a dict, for
+    the next point at the same (n, k, kappa), where given); with ``commit_nbs``, the kernel
+    checks at (kappa, n) and each of those Nb (``plus_kernel_checks``);
+    one counted ``PlusProver.prove`` of L copies of the instance in one
+    round (``plus_round``); the port's verifier on a fresh transcript; the
+    proof's serialization round trip. Returns (record, proof bytes,
+    {(kernel, shape): numbers})."""
+    import zlib
+
+    import torch
+
+    from latticefold_torch import serialization as ser
+    from latticefold_torch.plus import PlusProver, PlusTranscript, PlusVerifier, estimate_bound
+    from latticefold_torch.rings.construct import get_ring
+
+    ring = get_ring("frog")
+    B = estimate_bound(ring.d * 128, 3, ring.d, k) + 1
+    if setups is not None and (n, k, kappa) in setups:
+        scheme, c, pparams, setup_s, setup_parts = setups[(n, k, kappa)]
+    else:
+        if setups:
+            setups.clear()
+            torch.cuda.empty_cache()
+        setup_parts = {}
+        t0 = time.perf_counter()
+        with plus_timers(setup_parts):
+            scheme, c, pparams = plus_setup(n, k, kappa, B, device)
+        setup_s = time.perf_counter() - t0
+        log(f"[plus {label}] B={B} l={pparams.lin.decomp.l}: setup {setup_s:.2f} s "
+            f"({ {kk: round(v, 3) for kk, v in setup_parts.items()} })")
+        if setups is not None:
+            setups[(n, k, kappa)] = (scheme, c, pparams, setup_s, setup_parts)
+    kres, route = plus_kernel_checks(label, scheme, commit_nbs, device) if commit_nbs else ({}, {})
+    prover = PlusProver(scheme=scheme, M=c.x.matrices, transcript=PlusTranscript(ring), params=pparams)
+    proof, rnd = plus_round(label, prover, c, L, device, n_lin=L)
+    del prover
+    t0 = time.perf_counter()
+    PlusVerifier(ring=ring, M=c.x.matrices, transcript=PlusTranscript(ring), params=pparams).verify(proof)
+    verify_s = time.perf_counter() - t0
+    blob = ser.serialize_plus_proof(ring, proof)
+    if ser.serialize_plus_proof(ring, ser.deserialize_plus_proof(ring, blob)) != blob:
+        raise AssertionError(f"[plus {label}] the proof does not survive a round trip")
+    total = torch.cuda.get_device_properties(device).total_memory
+    rec = dict(n=n, m=n // k, k=k, kappa=kappa, B=B, setup_s=setup_s, setup_parts_s=setup_parts,
+               verify_s=verify_s, proof_bytes=len(blob),
+               proof_zlib_bytes=len(zlib.compress(blob)), peak_share=rnd["peak_bytes"] / total, route=route, **rnd)
+    log(f"[plus {label}] verify {verify_s:.3f} s: the port's verifier accepts; proof {len(blob)} B "
+        f"({rec['proof_zlib_bytes']} B zlib); peak {rec['peak_share']:.3f} of the card's {total} B")
+    del proof, scheme, c
+    torch.cuda.empty_cache()
+    return rec, blob, kres
+
+
+def run_plus_top(device, kres_crt):
+    """Phase 4d: ``PLUS_TOP``, the JAX bench's defaults at the top of the
+    reference sweep. The tensor-core CRT held at the path's new shapes
+    (icrt N = m, crt and icrt N = n: ``check_crt``), then ``plus_point``
+    with the commit kernel held at (kappa, n) and Nb 1, 2, 3 and k d.
+    Returns (record, kernels JSON entries)."""
+    import torch
+
+    from latticefold_torch.rings.construct import get_ring
+
+    ring = get_ring("frog")
+    n, k, kappa = PLUS_TOP
+    label = f"frog plus n={n} k={k} kappa={kappa}"
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    kcrt = check_crt(label, ring, n, device, flush, n // k)
+    del flush
+    torch.cuda.empty_cache()
+    rec, _, kres = plus_point(label, n, k, kappa, 1, device, commit_nbs=(1, 2, 3, k * ring.d))
+    kres = {**kcrt, **kres}
+    rec["kernels"] = {f"{kk}:{sh}": v for (kk, sh), v in kres.items()}
+    return rec, kernel_entries(label, "frog", n, k * ring.d, {**kres_crt, **kres}, rec["launches"], None, kappa)
+
+
+def run_plus_k3(device, kres_crt):
+    """Phase 4e: ``PLUS_K3``, L instances in one round at k 3 (m k < n:
+    ``ComR1CS.new`` pads f with zero rows), through ``plus_point`` with the
+    commit kernel held at (kappa, n, k d); the proof bytes must hash to
+    the JAX prover's digest (``PLUS_K3_SHA256``). Returns (record, kernels
+    JSON entries)."""
+    import hashlib
+
+    from latticefold_torch.rings.construct import get_ring
+
+    ring = get_ring("frog")
+    n, k, kappa, L = PLUS_K3
+    label = f"frog plus n={n} k={k} kappa={kappa} L={L}"
+    rec, blob, kres = plus_point(label, n, k, kappa, L, device, commit_nbs=(k * ring.d,))
+    rec["sha256"] = hashlib.sha256(blob).hexdigest()
+    if rec["sha256"] != PLUS_K3_SHA256:
+        raise AssertionError(f"[plus {label}] sha256 {rec['sha256']}, the JAX prover's {PLUS_K3_SHA256}")
+    log(f"[plus {label}] the JAX prover's digest")
+    rec["kernels"] = {f"{kk}:{sh}": v for (kk, sh), v in kres.items()}
+    return rec, kernel_entries(label, "frog", n, k * ring.d, {**kres_crt, **kres}, rec["launches"], None, kappa)
+
+
+def plus_bench_turns(device):
+    """4a's instance proved by both provers in turns: device then host,
+    host then device, device then host, each with 4a's bytes; each
+    prover's median of three prove s and of its parts. Run by
+    ``--plus-sweep`` (moved out of the default run for its time limit)."""
+    from latticefold_torch import serialization as ser
+    from latticefold_torch.plus import PlusProver, PlusTranscript, estimate_bound
+    from latticefold_torch.rings.construct import get_ring
+
+    ring = get_ring("frog")
+    n, k, kappa = PLUS_BENCH
+    B = estimate_bound(ring.d * 128, 3, ring.d, k) + 1
+    label = f"frog plus n={n} k={k} kappa={kappa}"
+    scheme, c, pparams = plus_setup(n, k, kappa, B, device)
+    runs, blob = {"device": [], "host": []}, None
+    for order in (("device", "host"), ("host", "device"), ("device", "host")):
+        for kind in order:
+            p = PlusProver(scheme=scheme, M=c.x.matrices, transcript=PlusTranscript(ring), params=pparams)
+            got, r = plus_round(f"{label} {kind} sumchecks, in turns", p, c, 1, device,
+                                host_sumchecks=kind == "host")
+            got = ser.serialize_plus_proof(ring, got)
+            if blob is not None and got != blob:
+                raise AssertionError(f"[plus {label}] the {kind}-sumcheck prove in turns gives other bytes")
+            blob = got
+            runs[kind].append(r)
+            del p
+    turns = {kind: dict(prove_s=[r["prove_s"] for r in rs], median_s=statistics.median(r["prove_s"] for r in rs),
+                        parts_median_s={k: statistics.median(r["parts_s"].get(k, 0.0) for r in rs)
+                                        for k in rs[0]["parts_s"]})
+             for kind, rs in runs.items()}
+    log(f"[plus {label}] in turns (device, host; host, device; device, host): device sumchecks "
+        f"{turns['device']['prove_s']} s (median {turns['device']['median_s']:.3f}), host sumchecks "
+        f"{turns['host']['prove_s']} s (median {turns['host']['median_s']:.3f}); medians of the parts: "
+        f"device { {k: round(v, 3) for k, v in turns['device']['parts_median_s'].items()} }, "
+        f"host { {k: round(v, 3) for k, v in turns['host']['parts_median_s'].items()} }")
+    return turns
+
+
+def plus_peak_sweep(device):
+    """LatticeFold+ against n, k, kappa and L (``PLUS_SWEEP``): at each point ``plus_point``
+    (one prove of L instances in one round on the device sumchecks,
+    counted, verified), recording prove s, the parts' s, verify s, peak
+    and reserved bytes, each part's peak, proof bytes and the launches. A
+    point that runs out of device memory is recorded as such, with the
+    prover's innermost frames at the failed allocation. At kappa 5 the
+    commit kernel is held at the point's commit shapes (``PLUS_SWEEP_COMMIT``).
+    Then 4a's pairs in turns (``plus_bench_turns``). Writes
+    chiprun_out/chip_smoke_plus_peaks.json. Returns (record, kernels JSON
+    entries of the commit checks)."""
+    import gc
+    import traceback
+
+    import torch
+
+    from latticefold_torch.rings.construct import get_ring
+
+    total = torch.cuda.get_device_properties(device).total_memory
+    out, entries, setups = [], [], {}
+    for i, (n, k, kappa, L) in enumerate(PLUS_SWEEP):
+        label = f"sweep n={n} k={k} kappa={kappa} L={L}"
+        nbs = PLUS_SWEEP_COMMIT if (n, kappa) == (1 << 19, 5) and L == 1 else ()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        try:
+            rec, _, kres = plus_point(label, n, k, kappa, L, device, commit_nbs=nbs, setups=setups)
+            if kres:
+                rec["kernels"] = {f"{kk}:{sh}": v for (kk, sh), v in kres.items()}
+                entries += kernel_entries(label, "frog", n, nbs[-1], kres, rec["launches"], None, kappa)
+        except torch.OutOfMemoryError as e:
+            # the prover's frames (plus/, arith/) and the innermost one
+            tb = [f for f in traceback.extract_tb(e.__traceback__) if "latticefold_torch" in f.filename]
+            at = [f for f in tb if os.sep + "plus" + os.sep in f.filename or os.sep + "arith" + os.sep in f.filename]
+            frames = [f"{os.path.relpath(f.filename, HERE)}:{f.lineno} {f.name}: {f.line}" for f in at[-3:] + tb[-1:]]
+            rec = dict(n=n, m=n // k, k=k, kappa=kappa, L=L, out_of_memory=str(e).splitlines()[0],
+                       at=frames, seconds_to_failure=time.perf_counter() - t0)
+            log(f"[plus {label}] out of device memory: {rec}")
+            del e
+            gc.collect()
+        rec["index"] = i
+        out.append(rec)
+        torch.cuda.empty_cache()
+    setups.clear()
+    torch.cuda.empty_cache()
+    turns = plus_bench_turns(device)
+    record = dict(card=nvidia_smi_line(), total_memory=total, points=out, bench_turns=turns)
+    with open(os.path.join(OUT_DIR, "chip_smoke_plus_peaks.json"), "w") as fh:
+        json.dump(record, fh, indent=1)
+    return record, entries
+
+
 def run_plus_phase(device, kres_frog=None, cpu_small=None):
     """Phase 4, LatticeFold+: 4a, 4b, 4c (``cpu_small``: the worker's job
-    for 4c's CPU prove, or None). ``kres_frog``: phase 2's Frog
+    for 4c's CPU prove, or None), 4d, 4e. ``kres_frog``: phase 2's Frog
     records, whose CRT shapes at crt N = 2^15 are this path's; without them
     (phase 4 alone) the CRT is held here at the path's shapes (icrt N = m,
     crt and icrt N = n). Returns (record, kernels JSON entries)."""
@@ -2444,6 +2718,11 @@ def run_plus_phase(device, kres_frog=None, cpu_small=None):
     record["multi"], ent = run_plus_multi(device, kres_crt)
     entries += ent
     record["small"] = run_plus_small(device, cpu_small)
+    torch.cuda.empty_cache()
+    record["top"], ent = run_plus_top(device, kres_crt)
+    entries += ent
+    record["k3"], ent = run_plus_k3(device, kres_crt)
+    entries += ent
     return record, entries
 
 
@@ -2520,6 +2799,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="Drive latticefold_torch's main paths on one NVIDIA GPU.")
     ap.add_argument("--profile", action="store_true",
                     help=f"also run one more {PROFILED} fold prove under torch.profiler (about 3 min)")
+    ap.add_argument("--plus-sweep", action="store_true",
+                    help="instead of the paths, LatticeFold+ over PLUS_SWEEP (plus_peak_sweep) and 4a's "
+                         "provers in turns")
     args = ap.parse_args()
 
     import torch
@@ -2551,18 +2833,22 @@ def main() -> int:
         for k, v in cuda.BUILD_LOG.items():
             fh.write(f"== {k}\n{v}\n")
 
-    # the CPU halves of the card-against-CPU checks, beside the card's work
-    pool = multiprocessing.get_context("spawn").Pool(1, initializer=cpu_worker_init)
-    try:
-        record, entries = run_paths(device, smi, start_cpu_halves(pool), args.profile)
-    finally:
-        pool.terminate()
-        pool.join()
+    if args.plus_sweep:
+        record, entries = plus_peak_sweep(device)
+    else:
+        # the CPU halves of the card-against-CPU checks, beside the card's work
+        pool = multiprocessing.get_context("spawn").Pool(1, initializer=cpu_worker_init)
+        try:
+            record, entries = run_paths(device, smi, start_cpu_halves(pool), args.profile)
+        finally:
+            pool.terminate()
+            pool.join()
 
     # phase 5: the record
-    with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
+    tag = "_plus_sweep" if args.plus_sweep else ""
+    with open(os.path.join(OUT_DIR, f"chip_smoke{tag}.json"), "w") as fh:
         json.dump(record, fh, indent=1)
-    with open(os.path.join(OUT_DIR, "chip_smoke_kernels.json"), "w") as fh:
+    with open(os.path.join(OUT_DIR, f"chip_smoke{tag}_kernels.json"), "w") as fh:
         json.dump({"kernels": entries}, fh, indent=1)
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)

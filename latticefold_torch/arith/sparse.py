@@ -18,6 +18,9 @@ from .. import modops as mo
 from ..rings import ops as rops
 from ..rings.construct import Ring
 
+# gathered F_q values (batch x rows x nonzeros x value) per chunk of rows
+_MATVEC_VALUES = 1 << 23
+
 
 class SparseMatrix:
     """rows: per-row list of (coeff, col). coeff: int (F_q) or host ring elt."""
@@ -101,19 +104,29 @@ class SparseMatrix:
         """z: [ncols, ncomp, e, nl] -> [nrows, ncomp, e, nl]."""
         return self.mat_vec_batched(z[None])[0]
 
-    def mat_vec_batched(self, z_batch):
-        """z_batch: [B, ncols, ncomp, e, nl] -> [B, nrows, ncomp, e, nl]."""
+    def mat_vec_batched(self, z_batch, out=None):
+        """z_batch: [B, ncols, ncomp, e, nl] -> [B, nrows, ncomp, e, nl],
+        into ``out`` where given (it must not overlap ``z_batch``). Rows
+        are taken _MATVEC_VALUES gathered F_q values at a time, so the
+        gather and its products stay bounded."""
         kind, cols, coeffs = self._device(z_batch.device)
-        gathered = z_batch[:, cols]  # [B, m, nnz, ncomp, e, nl]
-        if kind == "scalar":
-            prod = mo.mont_mul(self.ring.fq, gathered, coeffs[:, :, None, None, :])
-        else:
-            prod = rops.ring_mul(self.ring, gathered, coeffs)
-        # fold the small nnz axis sequentially (nnz is tiny)
-        acc = prod[:, :, 0]
-        for k in range(1, prod.shape[2]):
-            acc = rops.ring_add(self.ring, acc, prod[:, :, k])
-        return acc
+        B, nnz = z_batch.shape[0], cols.shape[1]
+        if out is None:
+            out = z_batch.new_empty((B, self.nrows) + tuple(z_batch.shape[2:]))
+        step = max(1, _MATVEC_VALUES // max(1, B * nnz * z_batch[0, 0].numel() // self.ring.nl))
+        for lo in range(0, self.nrows, step):
+            gathered = z_batch[:, cols[lo : lo + step]]  # [B, rows, nnz, ncomp, e, nl]
+            if kind == "scalar":
+                prod = mo.mont_mul(self.ring.fq, gathered, coeffs[lo : lo + step, :, None, None, :])
+            else:
+                prod = rops.ring_mul(self.ring, gathered, coeffs[lo : lo + step])
+            del gathered
+            # fold the small nnz axis sequentially (nnz is tiny)
+            acc = prod[:, :, 0]
+            for k in range(1, nnz):
+                acc = rops.ring_add(self.ring, acc, prod[:, :, k])
+            out[:, lo : lo + step] = acc
+        return out
 
     # host reference path (for tiny verifier-side checks / tests)
     def mat_vec_host(self, z: list):

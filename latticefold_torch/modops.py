@@ -63,14 +63,14 @@ class Modulus:
         return _int_to_limbs(self.r2, self.nl)
 
     def encode(self, arr) -> np.ndarray:
-        """Python ints / int array -> canonical-domain limb array [..., nl]."""
+        """Python ints / int array -> canonical-domain limb array [..., nl]
+        (the limbs taken from the whole array a word at a time)."""
         a = np.asarray(arr, dtype=object)
-        out = np.empty(a.shape + (self.nl,), dtype=np.uint32)
-        flat = a.reshape(-1)
-        oflat = out.reshape(-1, self.nl)
-        for i, v in enumerate(flat):
-            oflat[i] = _int_to_limbs(int(v) % self.q, self.nl)
-        return out
+        flat = np.array([int(v) % self.q for v in a.reshape(-1)], dtype=object)
+        out = np.empty((flat.shape[0], self.nl), dtype=np.uint32)
+        for i in range(self.nl):
+            out[:, i] = (flat >> (32 * i)) & 0xFFFFFFFF
+        return out.reshape(a.shape + (self.nl,))
 
     def decode(self, limbs) -> np.ndarray:
         """Canonical-domain limb array [..., nl] -> object array of Python ints."""

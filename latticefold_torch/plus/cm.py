@@ -9,8 +9,9 @@ f, h, M*each, t0, t1} with an rc-power combiner (cm.rs:201-342 / verifier
 349-538); folded witness g = s0 tau + s1 m_tau + s2 f + h (cm.rs:167-183).
 
 Tensors: h is a monomial gather, a ring product and a sum over the d
-columns; the ring MLE stack (1 + L(4+4|M|) + 2 tables of size n) runs
-through the scalar-challenge ring sumcheck (plus/sumcheck.py); openings are
+columns, a chunk of rows at a time; the ring MLE stack (1 + L(4+4|M|) + 2
+tables of size n, written in place into one tensor) runs through the
+scalar-challenge ring sumcheck (plus/sumcheck.py); openings are
 scalar-weighted contractions. comh, t(z) and the claim recomputation are
 small host coefficient algebra.
 """
@@ -32,6 +33,9 @@ from . import mleops
 from . import sumcheck as psc
 from .rgchk import Dcom, Rg, const_ring_batch, dcom_verify, scalar_to_ring_table
 from .transcript import PlusTranscript
+
+# rows of h taken at a time (each makes [rows, d, c, e, nl] ring products)
+_H_ROWS = 1 << 13
 
 
 @dataclass
@@ -99,17 +103,23 @@ def calculate_t_z(ring: Ring, c_z: List[int], s_prime_flat: List[list], l: int) 
 
 def _h_vectors(ring: Ring, rg: Rg, s_prime_ntt) -> List[torch.Tensor]:
     """h_l = sum_i M_f_i s'_i (cm.rs:82-103): monomial gather, ring product
-    with s' [d, ...] (broadcast over rows), sum over the d columns."""
+    with s' [d, ...] (broadcast over rows), sum over the d columns; a chunk
+    of _H_ROWS rows at a time, so the [rows, d, c, e, nl] products stay
+    bounded."""
     mono = cr.monomial_table(ring, s_prime_ntt.device)
     out = []
     for inst in rg.instances:
-        acc = None
-        for kk in range(rg.dparams.k):
-            prod = rops.ring_mul(ring, mono[inst.D_idx[kk]], s_prime_ntt[kk][None])  # [n, d, c, e, nl]
-            s = rops.ring_sum(ring, prod, 1)  # [n, c, e, nl]
-            del prod
-            acc = s if acc is None else rops.ring_add(ring, acc, s)
-        out.append(acc)
+        n = inst.D_idx.shape[1]
+        h = inst.f_ntt.new_empty((n, ring.ncomp, ring.e, ring.nl))
+        for lo in range(0, n, _H_ROWS):
+            acc = None
+            for kk in range(rg.dparams.k):
+                prod = rops.ring_mul(ring, mono[inst.D_idx[kk, lo : lo + _H_ROWS]], s_prime_ntt[kk][None])
+                s = rops.ring_sum(ring, prod, 1)  # [rows, c, e, nl]
+                del prod
+                acc = s if acc is None else rops.ring_add(ring, acc, s)
+            h[lo : lo + _H_ROWS] = acc
+        out.append(h)
     return out
 
 
@@ -152,18 +162,29 @@ def _cm_comb(ring: Ring, L: int, Mlen: int) -> psc.CombFn:
 
 
 def _build_cm_mles(ring: Ring, rg: Rg, r: List[int], h, t_dev_pair, M) -> torch.Tensor:
-    """[1 + L(4+4|M|) + 2, n, c, e, nl] stack (cm.rs:216-260)."""
+    """[1 + L(4+4|M|) + 2, n, c, e, nl] stack (cm.rs:216-260), written
+    table by table into one tensor: no table is held twice."""
     dev = h[0].device
+    n = h[0].shape[0]
+    L = len(rg.instances)
     mono = cr.monomial_table(ring, dev)
+    mles = h[0].new_empty((1 + L * (4 + 4 * len(M)) + 2, n, ring.ncomp, ring.e, ring.nl))
     eq_scalar = mleops.build_eq_scalar(ring, mleops.scalars_dev(ring, r, dev))
-    tables = [scalar_to_ring_table(ring, eq_scalar)]
+    mles[0] = scalar_to_ring_table(ring, eq_scalar)
+    del eq_scalar
+    i = 1
     for li, inst in enumerate(rg.instances):
-        group = [const_ring_batch(ring, inst.tau), mono[inst.m_tau_idx], inst.f_ntt, h[li]]
-        tables.extend(group)
+        group = mles[i : i + 4]  # tau, m_tau, f, h
+        group[0] = const_ring_batch(ring, inst.tau)
+        group[1] = mono[inst.m_tau_idx]
+        group[2] = inst.f_ntt
+        group[3] = h[li]
+        i += 4
         for Mi in M:
-            tables.extend(Mi.mat_vec_batched(torch.stack(group)))
-    tables.extend(t_dev_pair)
-    return torch.stack(tables)
+            Mi.mat_vec_batched(group, out=mles[i : i + 4])
+            i += 4
+    mles[i], mles[i + 1] = t_dev_pair
+    return mles
 
 
 def _rc_powers(ring: Ring, rc: int, n: int, device) -> torch.Tensor:

@@ -4,7 +4,9 @@ LF+ sumcheck points are base-field scalars (plus/sumcheck.py), so eq tables
 and MLE evaluations are F_q-weighted: eq weights [2^s, nl], applied to scalar
 tables [N, nl] or NTT-form ring tables [N, ncomp, e, nl] by plain Montgomery
 scaling (no extension arithmetic). Host ints enter as canonical limbs and
-are taken to the Montgomery domain on the tensor's device.
+are taken to the Montgomery domain on the tensor's device. Evaluations take
+the rows a chunk at a time, so their temporaries stay bounded however many
+tables are stacked.
 """
 
 from __future__ import annotations
@@ -17,6 +19,9 @@ import torch
 from .. import modops as mo
 from ..device import resolve
 from ..rings.construct import Ring
+
+# F_q values of the MLEs per chunk of an evaluation's rows
+_EVAL_VALUES = 1 << 23
 
 
 def canonical_tensor(ring: Ring, vals, device=None) -> torch.Tensor:
@@ -52,12 +57,24 @@ def build_eq_scalar(ring: Ring, rs):
     return buf
 
 
+def _eval_rows(ring: Ring, mles, w):
+    """sum_x w[x] mles[:, x] over the row axis, _EVAL_VALUES F_q values of
+    ``mles`` at a time (modular sums are exact: chunking changes no value)."""
+    fq = ring.fq
+    N = mles.shape[1]
+    step = max(1, _EVAL_VALUES // max(1, mles[:, 0].numel() // ring.nl))
+    acc = None
+    for lo in range(0, N, step):
+        part = mo.sum_mod(fq, mo.mont_mul(fq, mles[:, lo : lo + step], w[:, lo : lo + step]), 1)
+        acc = part if acc is None else mo.add(fq, acc, part)
+    return acc
+
+
 def eval_scalar_mles(ring: Ring, mles, eq):
     """Scalar MLEs [nm, N, nl] x eq [N, nl] -> [nm, nl]."""
-    return mo.sum_mod(ring.fq, mo.mont_mul(ring.fq, mles, eq[None]), 1)
+    return _eval_rows(ring, mles, eq[None])
 
 
 def eval_ring_mles_scalar(ring: Ring, mles, eq):
     """Ring MLEs [nm, N, ncomp, e, nl] x scalar eq [N, nl] -> [nm, ncomp, e, nl]."""
-    w = eq[None, :, None, None, :]
-    return mo.sum_mod(ring.fq, mo.mont_mul(ring.fq, mles, w), 1)
+    return _eval_rows(ring, mles, eq[None, :, None, None, :])

@@ -1,7 +1,8 @@
 """Committed R1CS frontend for LatticeFold+.
 
 Port of the reference's r1cs.rs: ``ComR1CS.new`` gadget-decomposes z into f
-(n = m*k), commits cm_f = A f (r1cs.rs:48-59); ``linearize`` runs a degree-3
+(m*k rows, zero rows up to the scheme's width n), commits cm_f = A f
+(r1cs.rs:48-59); ``linearize`` runs a degree-3
 sumcheck of eq(r,x)(ga gb - gc) over the mle[Az/Bz/Cz] tables
 (r1cs.rs:71-131) and emits the f/ga/gb/gc openings; the verifier
 recomputes e (va vb - vc) = s (r1cs.rs:135-161).
@@ -90,6 +91,11 @@ class ComR1CS:
         scheme: AjtaiScheme,
     ) -> "ComR1CS":
         f = gadget_decompose_vec(ring, z, b, k)
+        if f.shape[0] < scheme.n:
+            # m k < n (k 3 or 5 at a power-of-two n): zero rows up to the
+            # scheme's width, where the JAX package raises; the zero rows
+            # satisfy every padded constraint row
+            f = torch.cat([f, f.new_zeros((scheme.n - f.shape[0],) + tuple(f.shape[1:]))])
         cm_f = [ring.icrt_host(c) for c in rops.to_host(ring, scheme.commit_device(f))]
         return cls(x=ComR1CSX(matrices=list(matrices), z=z, cm_f=cm_f, l_in=l_in), f=f)
 

@@ -12,7 +12,8 @@ check's point; the verifier (rgchk.rs:193-241) checks the psi-based
 constant-term identities ct(psi*b) = a and ct(psi * sum d'^i u_i) = v.
 
 Layout: digits, monomial exponents and tau are int64 tensors on the
-witness's device; the commits go through ``AjtaiScheme.commit_batch``; MLE
+witness's device; the commits go through ``AjtaiScheme.commit_batch``,
+the monomial columns in groups of at most 4 GiB; MLE
 openings are scalar-weighted contractions (plus/mleops.py). The split
 of the commitment into tau is host code, as in the JAX package.
 """
@@ -34,6 +35,9 @@ from . import mleops
 from .setchk import MatrixSet, SetCheckOut, VectorSet, _bucket_dev, set_check
 from .setchk import verify as setchk_verify
 from .transcript import PlusTranscript
+
+# bytes of the monomial columns gathered for one batch commit of from_f
+_MF_GROUP_BYTES = 1 << 32
 
 
 @dataclass(frozen=True)
@@ -78,11 +82,15 @@ class RgInstance:
         digs = mo.signed_digits(ring.fq, f_coeff, b, k)  # [n, d, k]
         D_idx = (digs % d).permute(2, 0, 1).contiguous()  # [k, n, d]
 
-        # one batched commit of the k*d monomial columns
+        # batched commits of the k*d monomial columns, mf_group_cols at a
+        # time (a commit is column by column: the groups' outputs side by
+        # side are the one batch's)
         mono = cr.monomial_table(ring, dev)  # [d, c, e, nl]
-        Mf_cols = mono[D_idx.permute(1, 0, 2).reshape(n, k * d)]  # [n, k*d, c, e, nl]
-        comMf_host = rops.to_host(ring, scheme.commit_batch(Mf_cols))  # [kappa, k*d] ring elts
-        del Mf_cols
+        cols = D_idx.permute(1, 0, 2).reshape(n, k * d)
+        g = mf_group_cols(ring, n)
+        comMf = torch.cat([scheme.commit_batch(mono[cols[:, lo : lo + g]]) for lo in range(0, k * d, g)], dim=1)
+        comMf_host = rops.to_host(ring, comMf)  # [kappa, k*d] ring elts
+        del cols, comMf
         kappa = scheme.kappa
         # comM_f[kk][i][j]: commitment row i, monomial-matrix kk, column j
         comM_f = [
@@ -112,6 +120,12 @@ class RgInstance:
             comM_f=comM_f,
             fcoms=fcoms,
         )
+
+
+def mf_group_cols(ring: Ring, n: int) -> int:
+    """Monomial columns [n, cols, c, e, nl] per batch commit of ``from_f``:
+    as many as fit _MF_GROUP_BYTES (at least one)."""
+    return max(1, _MF_GROUP_BYTES // (n * ring.d * ring.nl * 8))
 
 
 def split(ring: Ring, comM_f, b: int, l: int, n: int) -> List[int]:
@@ -208,9 +222,15 @@ class Rg:
         eq_r = mleops.build_eq_scalar(ring, mleops.scalars_dev(ring, out.r, dev))
         w_host = mleops.host_ints(ring, eq_r)
 
+        # u = M_i^T tensor(r), the same for every instance (host loops over n)
+        n = self.instances[0].f_ntt.shape[0]
+        u_devs = []
+        for Mi in M:
+            u = Mi.transpose_mul_scalar_host(ring, w_host[: Mi.nrows])[:n]
+            u_devs.append(mleops.scalars_dev(ring, u + [0] * (n - len(u)), dev))
+
         evals = []
         for li, inst in enumerate(self.instances):
-            n = inst.f_ntt.shape[0]
             tau_mont = mo.to_mont(ring.fq, mo.digits_to_field(ring.fq, inst.tau))[None]  # [1, n, nl]
             # v: per-coefficient MLE evals of cf(f) at r
             v = mleops.host_ints(ring, mleops.eval_scalar_mles(ring, inst.f_coeff_mont.transpose(0, 1), eq_r))
@@ -220,9 +240,7 @@ class Rg:
             b = [out.b[li]]
             c = [_ring_eval(ring, inst.f_ntt, eq_r)]
 
-            for Mi in M:
-                u = Mi.transpose_mul_scalar_host(ring, w_host[: Mi.nrows])[:n]
-                u_dev = mleops.scalars_dev(ring, u + [0] * (n - len(u)), dev)
+            for Mi, u_dev in zip(M, u_devs):
                 # a: ct(eval of M_i * tau) -- tau is scalar, so ct == value
                 a.append(mleops.host_ints(ring, mleops.eval_scalar_mles(ring, tau_mont, u_dev))[0])
                 # b: eval of M_i * m_tau (ring), via exponent buckets

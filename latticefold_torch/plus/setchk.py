@@ -30,6 +30,9 @@ from . import mleops
 from . import sumcheck as psc
 from .transcript import PlusTranscript
 
+# F_q values (rows x columns x d exponents) per chunk of a bucket sum's rows
+_BUCKET_VALUES = 1 << 23
+
 
 @dataclass
 class MatrixSet:
@@ -143,24 +146,28 @@ def set_check(
     ncols = mats[0].shape[1]
     fq = ring.fq
 
-    mle_list = []
+    # the tables, written set by set into one tensor: per matrix set
+    # [m_0, m'_0, m_1, m'_1, ..., eq], per vector set [m, m', eq]
+    w = 2 * ncols + 1
+    mles = torch.empty((len(mats) * w + len(vecs) * 3, n, ring.nl), dtype=torch.int64, device=dev)
     alphas: List[int] = []
-    for s in mats:
+    for i, s in enumerate(mats):
         c = transcript.get_challenges(nvars)
         beta = transcript.get_challenge()
-        mj = _ev_project_dev(ring, s, beta, n, dev)  # [n, ncols, nl]
-        mprime = mo.mont_mul(fq, mj, mj)
-        # interleave [m_0, m'_0, m_1, m'_1, ...] on the column axis
-        pair = torch.stack([mj, mprime], dim=2)  # [n, ncols, 2, nl]
-        mle_list.append(pair.permute(1, 2, 0, 3).reshape(2 * ncols, n, ring.nl))
-        mle_list.append(mleops.build_eq_scalar(ring, mleops.scalars_dev(ring, c, dev))[None])
+        blk = mles[i * w : (i + 1) * w]
+        mj = _ev_project_dev(ring, s, beta, n, dev).transpose(0, 1)  # [ncols, n, nl]
+        blk[0 : 2 * ncols : 2] = mj
+        blk[1 : 2 * ncols : 2] = mo.mont_mul(fq, mj, mj)
+        del mj
+        blk[2 * ncols] = mleops.build_eq_scalar(ring, mleops.scalars_dev(ring, c, dev))
         alphas.append(transcript.get_challenge())
-    for s in vecs:
+    for i, s in enumerate(vecs):
         c = transcript.get_challenges(nvars)
         beta = transcript.get_challenge()
-        mj = _ev_project_dev(ring, s, beta, n, dev)  # [n, nl]
-        mle_list.append(torch.stack([mj, mo.mont_mul(fq, mj, mj)]))
-        mle_list.append(mleops.build_eq_scalar(ring, mleops.scalars_dev(ring, c, dev))[None])
+        blk = mles[len(mats) * w + 3 * i : len(mats) * w + 3 * (i + 1)]
+        blk[0] = _ev_project_dev(ring, s, beta, n, dev)  # [n, nl]
+        blk[1] = mo.mont_mul(fq, blk[0], blk[0])
+        blk[2] = mleops.build_eq_scalar(ring, mleops.scalars_dev(ring, c, dev))
         alphas.append(transcript.get_challenge())
 
     # Deviation from setchk.rs:153 (rc only when >1 MATRIX sets): the
@@ -171,8 +178,6 @@ def set_check(
     # whenever there is more than one set of any kind, as the JAX package does.
     batched = len(mats) + len(vecs) > 1
     rc = transcript.get_challenge() if batched else None
-
-    mles = torch.cat(mle_list, dim=0)
 
     nsets = len(mats) + len(vecs)
     q = ring.q
@@ -217,8 +222,14 @@ def _bucket_dev(ring: Ring, idx, w_dev) -> np.ndarray:
     idx = torch.as_tensor(idx, device=w_dev.device).long()
     n0 = idx.shape[0]
     w = w_dev[:n0].reshape((n0,) + (1,) * idx.ndim + (ring.nl,))  # [n0, (1,) 1, nl]
-    hit = (idx[..., None] == torch.arange(ring.d, device=w.device))[..., None]  # [n0, (ncols,) d, 1]
-    stacked = mo.sum_mod(ring.fq, torch.where(hit, w, torch.zeros_like(w)), 0)  # [(ncols,) d, nl]
+    exps = torch.arange(ring.d, device=w.device)
+    step = max(1, _BUCKET_VALUES // (idx[0].numel() * ring.d))
+    stacked = None
+    for lo in range(0, n0, step):
+        hit = (idx[lo : lo + step, ..., None] == exps)[..., None]  # [rows, (ncols,) d, 1]
+        wc = w[lo : lo + step]
+        part = mo.sum_mod(ring.fq, torch.where(hit, wc, torch.zeros_like(wc)), 0)  # [(ncols,) d, nl]
+        stacked = part if stacked is None else mo.add(ring.fq, stacked, part)
     return ring.fq.decode(mo.from_mont(ring.fq, stacked).cpu().numpy())
 
 
@@ -246,6 +257,7 @@ def _open_columns(ring: Ring, mats, eq_r, Mi: Optional[SparseMatrix]):
     else:
         w_full = _weights_host(ring, eq_r, Mi.nrows)
         w_host = Mi.transpose_mul_scalar_host(ring, w_full)
+        w_host += [0] * (eq_r.shape[0] - len(w_host))  # M_i narrower than n (m k < n): zero weights
         w_dev = mleops.scalars_dev(ring, w_host, eq_r.device)
     out = []
     for s in mats:

@@ -25,8 +25,11 @@ round message is ICRT'd (ring mode) and absorbed there, and the challenge
 is squeezed there, so no round reads the device. ``prove`` takes the device
 prover for tables on the card and the host prover for tables on the CPU,
 as the JAX package takes its device prover on every accelerator. The
-hypercube is taken in chunks of pairs so that the comb's temporaries stay
-bounded; modular sums are exact, so chunking changes no round message.
+hypercube is taken in chunks of pairs so that the comb's and the fold's
+temporaries stay bounded; modular sums are exact, so chunking changes no
+round message. The first fold writes a new half-size tensor (the caller's
+tables stay intact: ``cm`` opens and re-proves its stack), every later
+fold writes into the first half of the previous one.
 """
 
 from __future__ import annotations
@@ -71,20 +74,43 @@ class SumcheckError(Exception):
     pass
 
 
-def _fold(ring: Ring, mles, c):
-    """Fix variable 0 to the F_q scalar ``c`` [nl]: a0 + c (a1 - a0)."""
-    a0, a1 = mles[:, 0::2], mles[:, 1::2]
-    return mo.add(ring.fq, a0, mo.mont_mul(ring.fq, mo.sub(ring.fq, a1, a0), c))
+def _pair_step(ring: Ring, cur) -> int:
+    """Pairs per chunk of ``cur`` [nm, S, ...]: at most _CHUNK_VALUES F_q
+    values of input."""
+    per_pair = cur.shape[0] * cur[0, 0].numel() // ring.nl
+    return max(1, min(cur.shape[1] // 2, _CHUNK_VALUES // max(1, per_pair)))
+
+
+def _fold(ring: Ring, mles, c, out=None):
+    """Fix variable 0 to the F_q scalar ``c`` [nl]: a0 + c (a1 - a0), a
+    chunk of pairs at a time into ``out`` [nm, S/2, ...] (None: a new
+    tensor). ``out`` may be ``mles[:, :S/2]`` itself: pair j is read from
+    rows 2j, 2j + 1 and written to row j, and the chunks go in order, so no
+    row is written before it is read."""
+    fq = ring.fq
+    pairs = mles.shape[1] // 2
+    if out is None:
+        out = mles.new_empty((mles.shape[0], pairs) + tuple(mles.shape[2:]))
+    step = _pair_step(ring, mles)
+    for lo in range(0, pairs, step):
+        hi = min(pairs, lo + step)
+        a0, a1 = mles[:, 2 * lo : 2 * hi : 2], mles[:, 2 * lo + 1 : 2 * hi : 2]
+        out[:, lo:hi] = mo.add(fq, a0, mo.mont_mul(fq, mo.sub(fq, a1, a0), c))
+    return out
+
+
+def _fold_round(ring: Ring, cur, mles, c):
+    """The tables after a round: the caller's ``mles`` are folded into a new
+    tensor (they stay as they were), every later table in place."""
+    return _fold(ring, cur, c, None if cur is mles else cur[:, : cur.shape[1] // 2])
 
 
 def _round_evs(ring: Ring, comb: CombFn, degree: int, cur, consts):
     """One round's message [degree+1, ...value dims...] from tables ``cur``
     [nm, S, ...]: P(x) = sum over pairs of comb((1-x) a0 + x a1)."""
     m = ring.fq
-    nm, S = cur.shape[0], cur.shape[1]
-    pairs = S // 2
-    per_pair = nm * cur[0, 0].numel() // ring.nl
-    step = max(1, min(pairs, _CHUNK_VALUES // max(1, per_pair)))
+    pairs = cur.shape[1] // 2
+    step = _pair_step(ring, cur)
     total = None
     for lo in range(0, pairs, step):
         hi = min(pairs, lo + step)
@@ -136,7 +162,7 @@ def prove_host(
         round_evals.append(evs_host)
         c = transcript.get_challenge()
         challenges.append(c)
-        cur = _fold(ring, cur, mleops.scalar_dev(ring, c, cur.device))
+        cur = _fold_round(ring, cur, mles, mleops.scalar_dev(ring, c, cur.device))
     return SumcheckProof(round_evals), challenges, cur[:, 0]
 
 
@@ -165,7 +191,7 @@ def _device_rounds(ring: Ring, sp, mles, nvars: int, degree: int, comb: CombFn, 
         sp.absorb(c)
         rows_list.append(rows)
         chal_list.append(c[0])
-        cur = _fold(ring, cur, c[0])
+        cur = _fold_round(ring, cur, mles, c[0])
     return torch.stack(rows_list), torch.stack(chal_list), cur[:, 0]
 
 
