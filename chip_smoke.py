@@ -67,8 +67,12 @@ Phases (any failure raises and the script exits non-zero):
      each Hopper kernel of P1 dot_only, P3 and P4 / P5 dot_u8 timed in turns
      with its first design (``plane_dot_mma``, ``int_gemm_mma``), which
      must equal the plain version too, on the device and for the host's
-     time a call (``host_us_in_turns``); P5 bitcast and merge timed in turns
-     with ``clone()`` over 200 launches each.
+     time a call (``host_us_in_turns``); P5 dot_u8_via_bf16 beside
+     ``torch.mm`` of the bf16 casts with a float32 ``out_dtype`` where the
+     card's torch takes it and it is exact (``bf16_mm_ms``); P5 bitcast and
+     merge (kernel D's vector copies) equal to their first design
+     (``bitcast_u8_v1``, ``merge_minor_v1``) and timed in turns with it and
+     ``clone()`` over 1000 launches each (``relayout_turns``).
 2. For each ring, hold each kernel against its plain PyTorch version on the
    card at the path's shapes: the tensor-core CRT kernel
    (``crt_tc_kernel.cu``) as icrt at N = wit_len (the input witness), crt
@@ -93,16 +97,23 @@ Phases (any failure raises and the script exits non-zero):
    lanes) beside it; for the SIMT CRT and the commit kernels the 32-bit
    multiply-adds (two per 32x32 -> 64 limb product, nl^2 limb products per
    F_q product) at the card's 32-bit rate outside the tensor cores (the
-   commit kernels' lane floor beside it). The Poseidon kernel
-   (``poseidon_kernel.cu``, the device transcript's permutation) against
-   its plain version (``transcript.device.permute_plain``) on the card,
-   one permutation and one with a rate chunk added first, and a mixed
-   absorb / squeeze schedule of the device sponge on the card against the
-   same on the CPU (resting at index == rate, switching modes, a
-   challenge, a short challenge); its ms a permutation (cold L2) beside
-   its bound and its latency bound (the launch floor of a one-element
-   fill timed in the call, and the round chain's dependent multiply-adds
-   at 4 cycles each and the card's maximum SM clock).
+   commit kernels' lane floor beside it). The Poseidon sponge kernel
+   (``poseidon_kernel.cu`` ``lf_poseidon_sponge``, one launch per absorb
+   or squeeze call of the device transcript) against its plain version
+   (``transcript.device.sponge_call_plain``, ``permute_plain`` between the
+   call's segments) on the card: one permutation, a chunk at rate index
+   POSEIDON_IDX, a multi-permutation absorb and a multi-permutation
+   squeeze; its first design (``lf_poseidon``, a permutation a launch, off
+   every path) against ``permute_plain``; a mixed absorb / squeeze schedule
+   of the device sponge on the card against the same on the CPU (resting
+   at index == rate, switching modes, a challenge, a short challenge); the
+   one-permutation call timed in turns with the first design, cold L2 and
+   warm, and a permutation inside absorbs of the provers' round-message
+   lengths (warm), beside the bound and the latency bound
+   (``check_poseidon``, ``poseidon_chains_ms``: the launch floor of a
+   one-element fill timed in the call, or the permutation's own chain of
+   dependent multiply-adds at 4 cycles each and the card's maximum SM
+   clock, with the first design's figure beside it).
 3. For each ring's fold: one prove with the launch counts reset just before
    it (the tensor-core CRT 2K + 1, the Hopper dot 2 and the diagonal
    epilogue 2 launches per prove, and no other kernel: the SIMT CRT, the
@@ -119,9 +130,12 @@ Phases (any failure raises and the script exits non-zero):
    ``nifs.device_step.DeviceNIFS`` (``run_device_nifs``): its device part
    under ``torch.cuda.set_sync_debug_mode("error")``, its launches counted
    (the tensor-core CRT 4K + 4, the Hopper dot 2, the diagonal epilogue 2,
-   the Poseidon kernel once per permutation of the counted prove's host
-   transcript), and its proof bytes, folded accumulator, witness and
-   transcript state equal to the counted prove's. The native
+   the Poseidon sponge kernel once per absorb call and per squeeze call
+   that permutes of its device sponge, ``device_sponge_calls``; the
+   kernel's permutations, ``cuda.PERMUTATIONS``, equal to its schedule's
+   and to the counted prove's host transcript's), and its proof bytes,
+   folded accumulator, witness and transcript state equal to the counted
+   prove's. The native
    (C++) Poseidon sponge must have built for the rings with q < 2^64. Peak
    device memory is printed. With ``--profile``, one more Stark prove runs
    under the profiler (device busy s, device kernels, idle share; about 3
@@ -180,8 +194,9 @@ Phases (any failure raises and the script exits non-zero):
    at most 4 GiB of monomial columns in each instance's range check: 1
    at every shape of the default run, 2-3 at the sweep's n 2^19 points
    at k 3-5) and the Poseidon
-   kernel once per permutation of the device sumchecks' schedules, and
-   nothing else (the first commit kernel 0; ``ComR1CS.new``: 2 and 1);
+   sponge kernel once per absorb call and per squeeze call that permutes
+   of the device sumchecks' schedules (three a round; its permutations
+   those of the schedules), and nothing else (the first commit kernel 0; ``ComR1CS.new``: 2 and 1);
    each records prove s, the host seconds in the sponge, in the
    subprotocols and in the costliest host loops (t(z), the split into
    tau, comh, the transpose products, the sparse matrices' ELL build),
@@ -231,7 +246,8 @@ Phases (any failure raises and the script exits non-zero):
    chiprun_out/chip_smoke_kernels.json; one entry per kernel and fold path,
    the DeviceNIFS paths of Frog's fold and of 3e's step 1 included, the
    SIMT CRT, the item-per-thread epilogue and both commit kernels marked
-   off the fold paths, the Poseidon kernel off the modular ones, the CRT and both commit kernels for 4a and 4b (4b
+   off the fold paths, the Poseidon kernels off the modular ones (its first design off every path), the CRT and
+   both commit kernels for 4a and 4b (4b
    with round 2's launches; the first commit kernel at 0), per kernel, mode
    and shape of phase 1b, and both commit kernels at bench.py's shapes and
    two slices), then
@@ -263,6 +279,7 @@ PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_MAD32_PER_S = 33.5e12
 PEAK_INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core operations (a MAC is two)
 PEAK_BF16_OPS_PER_S = 989e12
+WARM_SLEEP_CYCLES = 400_000  # a warm timed run: the card sleeps this long (about 0.2 ms) while the host enqueues
 PLAIN_CHUNK_BYTES = 1 << 30  # largest product tensor of the chunked plain commit
 CPU_WAIT_S = 900  # longest wait for a CPU half of a check (the worker may have died)
 
@@ -339,6 +356,10 @@ BENCH_COMMIT = ("goldilocks", 9, 1 << 15, 1, (16, 64))
 TWO_SLICE_COMMIT = ("goldilocks", 9, 1 << 16, 16)
 PROBE_C, PROBE_MPAD, PROBE_K = 8, 224, 1 << 15  # the probes' commit-dot shape
 POSEIDON_IDX = 7  # phase 2: the rate index at which the timed permutation's chunk is added
+# phase 2: the sumcheck degrees whose round messages ((degree + 1) d values)
+# the Poseidon kernel's absorbs are timed at (LatticeFold+'s 2 and 3, the
+# linearization's 3; the fold's 2b is added per ring)
+PROVER_ABSORB_DEGREES = (2, 3)
 
 
 def log(msg):
@@ -396,16 +417,28 @@ def time_ms(fn, reps, flush=None):
 
 
 def time_in_turns(fns: dict, reps, flush):
-    """Median device times of several functions of the same work, each run
-    ``reps`` times in turns (the order reversed every other round: a, b, b,
-    a, ...), the L2 flushed before each run. Returns {key: ms}."""
+    """Median device times of several functions of the same work
+    (``turn_samples``). Returns {key: ms}."""
+    return {k: statistics.median(v) for k, v in turn_samples(fns, reps, flush).items()}
+
+
+def turn_samples(fns: dict, reps, flush):
+    """Device times of several functions of the same work, each run ``reps``
+    times in turns (the order reversed every other round: a, b, b, a, ...),
+    the L2 flushed before each run. ``flush`` None: not flushed (warm L2),
+    the card kept busy instead (``torch.cuda._sleep``) while the host
+    enqueues the run, so that the time is the device's and not the host's
+    dispatch. Returns {key: [ms, ...]}."""
     import torch
 
     ts = {k: [] for k in fns}
     keys = list(fns)
     for r in range(reps):
         for k in keys if r % 2 == 0 else keys[::-1]:
-            flush.zero_()
+            if flush is not None:
+                flush.zero_()
+            else:
+                torch.cuda._sleep(WARM_SLEEP_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -413,7 +446,7 @@ def time_in_turns(fns: dict, reps, flush):
             end.record()
             end.synchronize()
             ts[k].append(start.elapsed_time(end))
-    return {k: statistics.median(v) for k, v in ts.items()}
+    return ts
 
 
 def host_us_in_turns(fns: dict, rounds=10, calls=20):
@@ -552,59 +585,155 @@ def max_clock_mhz() -> float:
     return float(out.stdout.strip().splitlines()[0])
 
 
-def check_poseidon(name, ring, device, flush):
-    """Phase 2 for the Poseidon kernel (``csrc/poseidon_kernel.cu``) at one
-    ring: one permutation, and one with a chunk added at rate index
-    POSEIDON_IDX, against the plain version (``permute_plain``) on the same
-    card inputs; the mixed ``sponge_schedule`` on the card against the same
-    on the CPU (the plain version); the kernel timed (``time_ms``, cold L2)
-    beside the plain version and a launch of a one-element fill (the launch
-    floor of this call). Bound: the bytes (4 B a limb: state, chunk, ARK,
-    MDS, output) and the 32-bit multiply-adds (2 nl^2 a Montgomery product:
-    4 a lane's s-box, t^2 + 3t the MDS products and reductions, each round)
-    at the card's rates; beside it the latency bound the kernel's design
-    faces: the larger of the launch floor and the round chain (dependent
-    32-bit multiply-adds along one lane: 6 Montgomery products and t
-    accumulations of 2 nl a round, 4 cycles each at the card's maximum SM
-    clock). Returns the record."""
+def poseidon_chains_ms(nl: int, t: int, rf: int, rp: int, clock_mhz: float) -> dict:
+    """Latency bounds of one permutation from its dependent 32-bit
+    multiply-adds at 4 cycles each and the card's maximum SM clock, a
+    Montgomery product counted as 2 nl^2 of them and a level of additions of
+    lazy sums as 2 nl:
+
+    - ``chain_ms``, the permutation's own critical path: per round the
+      s-box's three dependent products and one product of the linear
+      layer; a full round then adds its t products in a tree of
+      ceil(log2 t) levels and reduces the sum (a product), a partial round
+      in the factored form adds one value (the rest of its dot is formed
+      while the s-box runs: csrc/poseidon.cuh);
+    - ``first_chain_ms``, the figure the first design was held to: per round
+      6 products and t dependent accumulations of 2 nl along one lane."""
+    levels = (t - 1).bit_length()
+    prod = 2 * nl * nl
+    per_cycle_ms = 4 / (clock_mhz * 1e3)
+    new = rf * (5 * prod + levels * 2 * nl) + rp * (4 * prod + 2 * nl)
+    first = (rf + rp) * (6 * prod + t * 2 * nl)
+    return dict(chain_ms=new * per_cycle_ms, first_chain_ms=first * per_cycle_ms)
+
+
+def poseidon_bound(ring, n_in: int) -> dict:
+    """``bound`` of one permutation of a state [t] read and written, after
+    adding ``n_in`` values read, the least over its two equal forms: the
+    plain rounds (constants ARK [rf + rp, t] and MDS [t, t]; per round the
+    s-boxes at 4 products each, t^2 MDS products and t reductions counted as
+    3 products each) and the factored form (csrc/poseidon.cuh: its
+    rf t + 2 t^2 + 2 t rp + rp^2 constants; a full round as above, a partial
+    round 4 + 2 (t - 1) + 1 products and a reduction). The plain form is the
+    least at nl 1 and 2, the factored form at nl 8."""
+    from latticefold_torch.transcript.poseidon import get_config
+
+    cfg = get_config(ring.q)
+    t, rf, rp = cfg.rate + cfg.capacity, cfg.full_rounds, cfg.partial_rounds
+    forms = {
+        "plain": bound(ring, t + n_in + (rf + rp) * t + t * t + t, 4 * (rf * t + rp) + (rf + rp) * (t * t + 3 * t)),
+        "factored": bound(ring, t + n_in + rf * t + 2 * t * t + 2 * t * rp + rp * rp + t,
+                          rf * (4 * t + t * t + 3 * t) + rp * (4 + 2 * (t - 1) + 1 + 3)),
+    }
+    form = min(forms, key=lambda f: forms[f]["bound_ms"])
+    return dict(forms[form], bound_form=form)
+
+
+def check_poseidon(name, ring, dp, device, flush):
+    """Phase 2 for the Poseidon kernels (``csrc/poseidon_kernel.cu``) at one
+    ring. The sponge kernel (``transcript.device.sponge_call``, the path's:
+    one launch per absorb or squeeze call) against its plain version
+    (``sponge_call_plain``: the call's segments with ``permute_plain``
+    between them) on the same card inputs: one permutation (a squeeze of
+    one value at a mode switch), a chunk at rate index POSEIDON_IDX (an
+    absorb of rate - POSEIDON_IDX + 1 values: the chunk, a permutation, one
+    trailing value), a multi-permutation absorb at a switch with a trailing
+    chunk, and a multi-permutation squeeze; the first design
+    (``_permute_kernel``, one permutation a launch, off every path) against
+    ``permute_plain`` with and without the chunk; the mixed
+    ``sponge_schedule`` on the card against the same on the CPU (the plain
+    version). Timed: the chunk call against the first design's chunked
+    permutation, in turns, with the L2 flushed before each run (cold) and
+    without (warm, the card asleep while the host enqueues: ``time_in_turns``);
+    absorb calls of the provers' round-message lengths
+    ((degree + 1) d for PROVER_ABSORB_DEGREES and, where DeviceNIFS folds
+    the ring, the folding sumcheck's 2b), warm,
+    per permutation; the plain version; a launch of a one-element fill (the
+    launch floor of this call). Bound of the chunk call and of the first
+    design's chunked permutation: ``poseidon_bound`` (bytes at 4 B a limb,
+    32-bit multiply-adds at 2 nl^2 a Montgomery product, the least over the
+    permutation's two forms); beside it the latency bound, the larger of the
+    launch floor and ``poseidon_chains_ms``'s chain, and the first design's
+    chain figure. Returns {(kernel, shape): record}."""
     import torch
 
     from latticefold_torch.transcript import device as dtr
     from latticefold_torch.transcript.poseidon import get_config
 
     cfg = get_config(ring.q)
-    t, rounds, nl = cfg.rate + cfg.capacity, cfg.full_rounds + cfg.partial_rounds, ring.nl
-    k = cfg.rate - POSEIDON_IDX
+    t, rate, rf, rp, nl = cfg.rate + cfg.capacity, cfg.rate, cfg.full_rounds, cfg.partial_rounds, ring.nl
+    k = rate - POSEIDON_IDX
     state = rand_field(ring, (t,), 60, device)
-    chunk = rand_field(ring, (k,), 61, device)
-    err = max_abs_err(f"poseidon [{name}] one permutation", dtr._permute_kernel(ring, state, None, 0),
-                      dtr.permute_plain(ring, state))
-    err += max_abs_err(f"poseidon [{name}] chunk at rate index {POSEIDON_IDX}",
-                       dtr._permute_kernel(ring, state, chunk, POSEIDON_IDX),
-                       dtr.permute_plain(ring, state, chunk, POSEIDON_IDX))
-    vals = rand_field(ring, (80,), 62, device)
-    card_outs, card_end = sponge_schedule(ring, vals)
-    cpu_outs, cpu_end = sponge_schedule(ring, vals.cpu())
+    chunk = rand_field(ring, (k + 1,), 61, device)
+    n_abs, n_sq = 3 * rate + 7, 2 * rate + 5
+    vals = rand_field(ring, (n_abs,), 63, device)
+
+    def new_chunk():
+        return dtr.sponge_call(ring, state, chunk, k + 1, POSEIDON_IDX, False)[0]
+
+    def first_chunk():
+        return dtr._permute_kernel(ring, state, chunk[:k], POSEIDON_IDX)
+
+    # (label, sponge_call's arguments after the state)
+    calls = [("one permutation (a squeeze of 1 at a switch)", (None, 1, 0, True)),
+             (f"chunk at rate index {POSEIDON_IDX}", (chunk, k + 1, POSEIDON_IDX, False)),
+             (f"absorb of {n_abs} at a switch", (vals, n_abs, 0, True)),
+             (f"squeeze of {n_sq} from rate index 3", (None, n_sq, 3, False))]
+    err = 0
+    for label, args in calls:
+        got = dtr.sponge_call(ring, state, *args)
+        want = dtr.sponge_call_plain(ring, state, *args)
+        err += max_abs_err(f"poseidon [{name}] {label}: state", got[0], want[0])
+        if got[1] is not None:
+            err += max_abs_err(f"poseidon [{name}] {label}: squeezed", got[1], want[1])
+    first_err = max_abs_err(f"poseidon first design [{name}] one permutation",
+                            dtr._permute_kernel(ring, state, None, 0), dtr.permute_plain(ring, state))
+    first_err += max_abs_err(f"poseidon first design [{name}] chunk at rate index {POSEIDON_IDX}", first_chunk(),
+                             dtr.permute_plain(ring, state, chunk[:k], POSEIDON_IDX))
+    svals = rand_field(ring, (80,), 62, device)
+    card_outs, card_end = sponge_schedule(ring, svals)
+    cpu_outs, cpu_end = sponge_schedule(ring, svals.cpu())
     for i, (a, b) in enumerate(zip(card_outs + [card_end[0]], cpu_outs + [cpu_end[0]])):
         err += max_abs_err(f"poseidon [{name}] schedule output {i} (card against the CPU's plain sponge)", a, b)
     if card_end[1:] != cpu_end[1:]:
         raise AssertionError(f"poseidon [{name}]: the schedule's bookkeeping differs between the card and the CPU")
-    ms = time_ms(lambda: dtr._permute_kernel(ring, state, chunk, POSEIDON_IDX), 50, flush)
-    plain_ms = time_ms(lambda: dtr.permute_plain(ring, state, chunk, POSEIDON_IDX), 3, flush)
+
+    cold = time_in_turns({"new": new_chunk, "first": first_chunk}, 50, flush)
+    warm = time_in_turns({"new": new_chunk, "first": first_chunk}, 50, None)
+    per_perm = {}
+    fold_degrees = (2 * dp.b,) if dp.B < 1 << 16 else ()  # DeviceNIFS folds B < 2^16 only
+    for degree in sorted(set(PROVER_ABSORB_DEGREES + fold_degrees)):
+        n = (degree + 1) * ring.d
+        perms, _ = dtr.call_plan(n, POSEIDON_IDX, False, rate)
+        v = rand_field(ring, (n,), 64, device)
+        ms = time_in_turns({"call": lambda: dtr.sponge_call(ring, state, v, n, POSEIDON_IDX, False)}, 50, None)["call"]
+        per_perm[f"absorb {n}"] = dict(degree=degree, permutations=perms, call_ms=ms, ms_per_permutation=ms / perms)
+    plain_ms = time_ms(lambda: dtr.sponge_call_plain(ring, state, chunk, k + 1, POSEIDON_IDX, False), 3, flush)
+    first_plain_ms = time_ms(lambda: dtr.permute_plain(ring, state, chunk[:k], POSEIDON_IDX), 3, flush)
     one = torch.zeros(1, dtype=torch.int64, device=device)
     floor_ms = time_ms(lambda: one.zero_(), 50, flush)
-    n_values = t + k + rounds * t + t * t + t
-    n_products = 4 * (cfg.full_rounds * t + cfg.partial_rounds) + rounds * (t * t + 3 * t)
-    b = bound(ring, n_values, n_products)
+    b = poseidon_bound(ring, k + 1)
     clock = max_clock_mhz()
-    chain_ms = rounds * (6 * 2 * nl * nl + t * 2 * nl) * 4 / (clock * 1e6) * 1e3
-    rec = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, library_ms=None, launch_floor_ms=floor_ms,
-               chain_ms=chain_ms, latency_bound_ms=max(floor_ms, chain_ms), max_sm_clock_mhz=clock, **b)
-    log(f"[kernels] poseidon[{name}] {poseidon_shape(ring)}: {ms:.4f} ms a permutation; bound {b['bound_ms']:.6f} ms "
-        f"({b['bound_by']}), latency bound {rec['latency_bound_ms']:.4f} ms (launch floor {floor_ms:.4f}, round "
-        f"chain {chain_ms:.4f}); plain {plain_ms:.2f} ms; exact against the plain version, and the card's schedule "
-        "against the CPU's")
-    return rec
+    chains = poseidon_chains_ms(nl, t, rf, rp, clock)
+    rec = dict(ms=cold["new"], first_ms=cold["first"], warm_ms=warm["new"], first_warm_ms=warm["first"],
+               per_permutation=per_perm, plain_ms=plain_ms, max_abs_err=err, library_ms=None,
+               launch_floor_ms=floor_ms, latency_bound_ms=max(floor_ms, chains["chain_ms"]),
+               max_sm_clock_mhz=clock, **chains, **b)
+    first_b = poseidon_bound(ring, k)
+    first_rec = dict(ms=cold["first"], warm_ms=warm["first"], new_ms=cold["new"], plain_ms=first_plain_ms,
+                     max_abs_err=first_err, library_ms=None, launch_floor_ms=floor_ms,
+                     chain_ms=chains["first_chain_ms"], latency_bound_ms=max(floor_ms, chains["first_chain_ms"]),
+                     max_sm_clock_mhz=clock, **first_b)
+    pp = ", ".join(f"{key} ({r['permutations']} perms) {r['ms_per_permutation']:.5f}" for key, r in per_perm.items())
+    log(f"[kernels] poseidon[{name}] {poseidon_shape(ring)}: sponge kernel {cold['new']:.5f} ms a one-permutation "
+        f"call cold (first design {cold['first']:.5f} in turns), warm {warm['new']:.5f} (first design "
+        f"{warm['first']:.5f}); ms a permutation inside the provers' absorbs, warm: {pp}; bound "
+        f"{b['bound_ms']:.6f} ms ({b['bound_by']}), latency bound {rec['latency_bound_ms']:.5f} ms (launch floor "
+        f"{floor_ms:.5f}, chain {chains['chain_ms']:.5f}; the first design's chain figure "
+        f"{chains['first_chain_ms']:.5f}); plain {plain_ms:.2f} ms; exact against the plain version on one "
+        "permutation, a chunk, a multi-permutation absorb and squeeze, and the card's schedule against the CPU's")
+    shape = poseidon_shape(ring)
+    return {("poseidon", shape): rec, ("poseidon_perm", shape): first_rec}
 
 
 def check_kernels(name, dp, scheme, device, wit_len=WIT_LEN):
@@ -621,7 +750,7 @@ def check_kernels(name, dp, scheme, device, wit_len=WIT_LEN):
         shape = f"kappa={scheme.kappa} n={n} Nb={Nb}"
         results[("commit_sm90", shape)], results[("commit", shape)] = check_commit(name, scheme, Nb, seed, device,
                                                                                    flush)
-    results[("poseidon", poseidon_shape(ring))] = check_poseidon(name, ring, device, flush)
+    results.update(check_poseidon(name, ring, dp, device, flush))
     del flush
     torch.cuda.empty_cache()
     return results
@@ -734,8 +863,8 @@ def sponge_timer(sponge_cls, acc: dict):
 def host_permutations(sponge_cls, ring):
     """Counts the permutations of the host sponges of ``sponge_cls`` while the
     block runs: each sponge's absorb and squeeze_native calls replayed on a
-    ``transcript.device.GhostSponge`` of ``ring`` (a sponge first seen in the
-    block is taken to be fresh, as a new Transcript's is). Yields a function
+    ``transcript.device.GhostSponge`` of ``ring``, started from the sponge's
+    rate index and mode when the block first sees it. Yields a function
     giving the count so far."""
     from latticefold_torch.transcript import device as dtr
 
@@ -744,7 +873,8 @@ def host_permutations(sponge_cls, ring):
 
     def counter(sp):
         if id(sp) not in seen:
-            seen[id(sp)] = (sp, dtr.GhostSponge(ring, 0, True))
+            _, index, absorbing = sp.snapshot() if hasattr(sp, "snapshot") else (None, sp.index, sp.mode_absorbing)
+            seen[id(sp)] = (sp, dtr.GhostSponge(ring, index, absorbing))
         return seen[id(sp)][1]
 
     def absorb(self, elements):
@@ -815,23 +945,72 @@ def witness_digest(ring, w) -> str:
     return h.hexdigest()
 
 
-def device_nifs_launches(dp, n, perms) -> dict:
+@contextlib.contextmanager
+def device_sponge_calls():
+    """While the block runs, every ``TraceSponge.absorb`` / ``squeeze`` call is
+    replayed on a ``transcript.device.GhostSponge`` (started from the
+    sponge's bookkeeping when first seen). Yields a function giving the
+    schedule's (launches, permutations): the sponge kernel launches once per
+    absorb call and once per squeeze call that permutes."""
+    from latticefold_torch.transcript import device as dtr
+
+    cls = dtr.TraceSponge
+    saved = {k: getattr(cls, k) for k in ("absorb", "squeeze")}
+    seen = {}  # id -> (sponge, ghost): the sponge is kept, so no id is reused
+
+    def ghost(sp):
+        if id(sp) not in seen:
+            seen[id(sp)] = (sp, dtr.GhostSponge(sp.ring, sp.index, sp.absorbing))
+        return seen[id(sp)][1]
+
+    def absorb(self, vals):
+        ghost(self).absorb(int(vals.shape[0]))
+        return saved["absorb"](self, vals)
+
+    def squeeze(self, n):
+        ghost(self).squeeze(n)
+        return saved["squeeze"](self, n)
+
+    cls.absorb, cls.squeeze = absorb, squeeze
+    try:
+        yield lambda: (sum(g.launches for _, g in seen.values()), sum(g.perms for _, g in seen.values()))
+    finally:
+        for k, fn in saved.items():
+            setattr(cls, k, fn)
+
+
+def check_permutations(what, perms: int, want=None):
+    """The Poseidon sponge kernel's permutations (``cuda.PERMUTATIONS``)
+    against the schedule's count ``perms`` and, where given, ``want``: the
+    permutations the host transcript made for the same work."""
+    from latticefold_torch import cuda
+
+    got = cuda.PERMUTATIONS["poseidon"]
+    if got != perms or want is not None and got != want:
+        raise AssertionError(f"{what}: the Poseidon kernel ran {got} permutations, its schedule {perms}, the host "
+                             f"transcript {want}")
+
+
+def device_nifs_launches(dp, n, calls) -> dict:
     """The launches of one ``DeviceNIFS.prove`` at Ajtai width ``n`` whose
-    transcript permutes ``perms`` times: per decomposition K digit CRTs, the
-    statement split's ICRT and K CRTs and the batch commit (a Hopper dot
-    per 2^15-term slice, one diagonal epilogue); the rho CRT and the folded
-    witness's ICRT; a Poseidon kernel per permutation."""
+    device transcript makes ``calls`` absorb calls and squeeze calls that
+    permute: per decomposition K digit CRTs, the statement split's ICRT and
+    K CRTs and the batch commit (a Hopper dot per 2^15-term slice, one
+    diagonal epilogue); the rho CRT and the folded witness's ICRT; the
+    Poseidon sponge kernel once per such call."""
     from latticefold_torch.rings import plane_commit
 
     slices = -(-n // plane_commit._K_SLICE)
-    return {"crt_tc": 4 * dp.K + 4, "plane_dot_sm90": 2 * slices, "plane_epilogue_diag": 2, "poseidon": perms}
+    return {"crt_tc": 4 * dp.K + 4, "plane_dot_sm90": 2 * slices, "plane_epilogue_diag": 2, "poseidon": calls}
 
 
 def run_device_nifs(label, ring, ccs, dp, scheme, acc, w_acc, cm_i, wit, want: dict):
     """One ``DeviceNIFS.prove`` (its device part ``_trace`` under sync debug
     "error", the whole prove counted under "warn"), its launches counted:
-    ``device_nifs_launches`` with ``want["perms"]`` (the modular prove's
-    host permutations). Its proof bytes, folded accumulator bytes, witness
+    ``device_nifs_launches`` with the device sponge's calls
+    (``device_sponge_calls``), and the Poseidon kernel's permutations equal
+    to the schedule's and to ``want["perms"]`` (the modular prove's host
+    permutations). Its proof bytes, folded accumulator bytes, witness
     digest and transcript state must equal ``want``'s (the modular prove's).
     Returns the record."""
     import torch
@@ -847,23 +1026,26 @@ def run_device_nifs(label, ring, ccs, dp, scheme, acc, w_acc, cm_i, wit, want: d
     torch.cuda.reset_peak_memory_stats()
     cuda.reset_launches()
     t0 = time.perf_counter()
-    with count_syncs(syncs):
+    with count_syncs(syncs), device_sponge_calls() as schedule:
         folded, w0, proof = dn.prove(acc, w_acc, cm_i, wit, t)
         torch.cuda.synchronize()
     prove_s = time.perf_counter() - t0
     launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
-    expected = device_nifs_launches(dp, scheme.n, want["perms"])
+    calls, perms = schedule()
+    expected = device_nifs_launches(dp, scheme.n, calls)
     if launches != expected:
         raise AssertionError(f"DeviceNIFS [{label}]: launches {launches}, expected {expected}")
+    check_permutations(f"DeviceNIFS [{label}]", perms, want["perms"])
     got = dict(proof=ser.serialize_proof(ring, proof), acc=ser.serialize_lcccs(ring, folded),
                witness=witness_digest(ring, w0), state=state_of(t))
     for k, v in got.items():
         if v != want[k]:
             raise AssertionError(f"DeviceNIFS [{label}]: the {k} differs from the modular prover's")
-    rec = dict(prove_s=prove_s, syncs=syncs["n"], launches=launches, peak_bytes=torch.cuda.max_memory_allocated())
+    rec = dict(prove_s=prove_s, syncs=syncs["n"], launches=launches, permutations=perms,
+               peak_bytes=torch.cuda.max_memory_allocated())
     log(f"[device nifs {label}] prove {prove_s:.3f} s, {syncs['n']} host syncs in the prove (none in its device "
-        f"part: sync debug mode error), launches {launches}; proof, folded accumulator, witness and transcript "
-        f"state equal the modular prover's")
+        f"part: sync debug mode error), launches {launches}, {perms} Poseidon permutations; proof, folded "
+        "accumulator, witness and transcript state equal the modular prover's")
     return rec
 
 
@@ -1177,8 +1359,8 @@ def run_fused_chain_phase(device, chain: dict):
     """Phase 3e: the chain of phase 3b (``CHAIN``) through ``DeviceNIFS``
     (``e2e.setup_chain(..., fused=True)``), each step by
     ``run_device_nifs``'s checks: its device part raises on any host sync,
-    its launches are ``device_nifs_launches`` with the modular step's
-    permutations, and its proof bytes (step 1's the fold phase's too),
+    its launches are ``device_nifs_launches`` with its device sponge's calls,
+    its Poseidon permutations the modular step's, and its proof bytes (step 1's the fold phase's too),
     folded accumulator, witness and transcript state are those of phase
     3b's step. Pops each step's ``want`` from ``chain``. Returns the
     record."""
@@ -1195,20 +1377,23 @@ def run_fused_chain_phase(device, chain: dict):
         want = chain["steps"][i - 1].pop("want")
         want["perms"] = chain["steps"][i - 1]["permutations"]
         syncs = {}
-        with count_syncs(syncs):
+        with count_syncs(syncs), device_sponge_calls() as schedule:
             acc, w_acc, step = e2e.prove_step(s, acc, w_acc)
-        expected = device_nifs_launches(s.dp, s.scheme.n, want["perms"])
+        calls, perms = schedule()
+        expected = device_nifs_launches(s.dp, s.scheme.n, calls)
         if step.launches != expected:
             raise AssertionError(f"fused chain step {i}: launches {step.launches}, expected {expected}")
+        check_permutations(f"fused chain step {i}", perms, want["perms"])
         got = dict(proof=ser.serialize_proof(ring, step.proof), acc=ser.serialize_lcccs(ring, acc),
                    witness=witness_digest(ring, w_acc), state=step.transcript_state)
         for k, v in got.items():
             if v != want[k]:
                 raise AssertionError(f"fused chain step {i}: the {k} differs from phase 3b's step {i}")
         rec.append(dict(step=i, prove_s=step.prove_s, modular_prove_s=chain["steps"][i - 1]["prove_s"],
-                        syncs=syncs["n"], launches=step.launches, peak_bytes=step.peak_bytes))
+                        syncs=syncs["n"], launches=step.launches, permutations=perms, peak_bytes=step.peak_bytes))
         log(f"[fused chain {name}] step {i}: prove {step.prove_s:.3f} s (modular {rec[-1]['modular_prove_s']:.3f} "
             f"s), {syncs['n']} host syncs in the prove (none in its device part), launches {step.launches}, "
+            f"{perms} Poseidon permutations, "
             f"peak {step.peak_bytes} B; proof, accumulator, witness and transcript state equal phase 3b's")
     if w_acc.commit(s.scheme) != acc.cm:
         raise AssertionError("fused chain: the last witness does not open the last commitment")
@@ -1731,13 +1916,39 @@ def probe_case(label, kernel, fn, plain, flush, n_bytes, ops, peak_ops=PEAK_INT8
     return r
 
 
-def relayout_turns(label, fn, lib, flush, reps=200):
-    """P5's one-launch relayouts against ``clone()`` of the same bytes, in
-    turns over ``reps`` launches each: a tie or a loss, as measured."""
-    t = time_in_turns({"kernel": fn, "clone": lib}, reps, flush)
-    log(f"[probe {label}] in turns over {reps} launches each: kernel {t['kernel']:.5f} ms, clone() "
-        f"{t['clone']:.5f} ms")
+def relayout_turns(label, fn, first, lib, flush, reps=1000):
+    """P5's one-launch relayouts against their first design and ``clone()``
+    of the same bytes, in turns over ``reps`` launches each (the L2 flushed
+    before each: ``turn_samples``), with the spread of each: the first and
+    third quartiles."""
+    t = {}
+    for k, v in turn_samples({"kernel": fn, "first": first, "clone": lib}, reps, flush).items():
+        q1, med, q3 = statistics.quantiles(v, n=4)
+        t[k], t[f"{k}_q1"], t[f"{k}_q3"] = med, q1, q3
+    t["reps"] = reps
+    log(f"[probe {label}] in turns over {reps} launches each (median [q1, q3]): kernel {t['kernel']:.6f} "
+        f"[{t['kernel_q1']:.6f}, {t['kernel_q3']:.6f}] ms, first design {t['first']:.6f} [{t['first_q1']:.6f}, "
+        f"{t['first_q3']:.6f}], clone() {t['clone']:.6f} [{t['clone_q1']:.6f}, {t['clone_q3']:.6f}]")
     return t
+
+
+def bf16_mm_ms(x, y, want, flush):
+    """P5 dot_u8_via_bf16's library call: ``torch.mm`` of the bf16 casts with
+    a float32 ``out_dtype`` (exact: the u8 values and their products' sums
+    are exact in bf16 and float32), timed with the casts outside the timing,
+    where the card's torch takes that argument and the result equals the
+    plain version; else None (a bf16 output rounds and is no yardstick).
+    Returns (ms or None, note)."""
+    import torch
+
+    xb, yb = x.to(torch.bfloat16), y.to(torch.bfloat16)
+    try:
+        got = torch.mm(xb, yb, out_dtype=torch.float32)
+    except (TypeError, RuntimeError) as e:
+        return None, f"torch.mm takes no out_dtype here ({type(e).__name__}: {str(e)[:120]})"
+    if got.dtype != torch.float32 or not torch.equal(got, want):
+        return None, "torch.mm(out_dtype=float32) does not equal the plain version"
+    return time_ms(lambda: torch.mm(xb, yb, out_dtype=torch.float32), 50, flush), "torch.mm(bf16, out_dtype=float32)"
 
 
 def check_probes(device):
@@ -1820,30 +2031,51 @@ def check_probes(device):
         gemm(f"P4 dotspeed s8 1728x32768x{nn}", i8(1728, 1 << 15), i8(1 << 15, nn))
     gemm("P5 dot_u8 128x256x128", u8(128, 256), u8(256, 128), library=False)
     x, y = u8(128, 128), u8(128, 128)
+    lib_note = {}
+
+    def bf16_lib():
+        ms, lib_note["note"] = bf16_mm_ms(x, y, pp.bf16_gemm_plain(x, y), flush)
+        return ms
+
     gemm("P5 dot_u8_via_bf16 128x128x128", x, y, fn=pp.bf16_gemm, plain=pp.bf16_gemm_plain,
          peak=PEAK_BF16_OPS_PER_S, library=False, kernel="int_gemm", first=None)
+    cases["P5 dot_u8_via_bf16 128x128x128"]["library_ms"] = bf16_lib()
+    cases["P5 dot_u8_via_bf16 128x128x128"]["library_note"] = lib_note["note"]
+    log(f"[probe P5 dot_u8_via_bf16 128x128x128] library: {lib_note['note']}, "
+        f"{cases['P5 dot_u8_via_bf16 128x128x128']['library_ms']} ms")
     xb = u32(8, 128)
     cases["P5 bitcast 8x128"] = probe_case(
         "P5 bitcast 8x128", "bitcast", lambda: pp.bitcast_u8(xb), lambda: xb.view(torch.uint8), flush,
-        2 * xb.numel() * 4, 0, library=lambda: time_ms(lambda: xb.view(torch.uint8).clone(), 20, flush))
+        2 * xb.numel() * 4, 0, library=lambda: time_ms(lambda: xb.view(torch.uint8).clone(), 20, flush),
+        first=lambda: pp.bitcast_u8_v1(xb))
     cases["P5 bitcast 8x128"]["turns_with_clone"] = relayout_turns(
-        "P5 bitcast 8x128", lambda: pp.bitcast_u8(xb), lambda: xb.view(torch.uint8).clone(), flush)
+        "P5 bitcast 8x128", lambda: pp.bitcast_u8(xb), lambda: pp.bitcast_u8_v1(xb),
+        lambda: xb.view(torch.uint8).clone(), flush)
     ym = u32(8, 16, 4)
     cases["P5 merge 8x16x4"] = probe_case(
         "P5 merge 8x16x4", "merge", lambda: pp.merge_minor(ym), lambda: ym.reshape(8, 64), flush,
-        2 * ym.numel() * 4, 0, library=lambda: time_ms(lambda: ym.reshape(8, 64).clone(), 20, flush))
+        2 * ym.numel() * 4, 0, library=lambda: time_ms(lambda: ym.reshape(8, 64).clone(), 20, flush),
+        first=lambda: pp.merge_minor_v1(ym))
     cases["P5 merge 8x16x4"]["turns_with_clone"] = relayout_turns(
-        "P5 merge 8x16x4", lambda: pp.merge_minor(ym), lambda: ym.reshape(8, 64).clone(), flush)
+        "P5 merge 8x16x4", lambda: pp.merge_minor(ym), lambda: pp.merge_minor_v1(ym),
+        lambda: ym.reshape(8, 64).clone(), flush)
     entries = []
     for label, r in cases.items():
         key = PROBE_KERNEL[label.split()[0] + " " + label.split()[1]]
         extra = {k: r[k] for k in ("first_ms", "faster_than_first", "host_us", "first_host_us",
-                                   "library_b_col_major_ms", "turns_with_clone") if k in r}
+                                   "library_b_col_major_ms", "turns_with_clone", "library_note") if k in r}
         entries.append(dict(KERNEL_INFO[key], name=f"{KERNEL_INFO[key]['name']}[{label}]",
                             replaces=PROBE_REPLACES[label.split()[0] + " " + label.split()[1]],
                             launches=r["launches"], max_abs_err=r["max_abs_err"], ms=r["ms"],
                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                             library_ms=r["library_ms"], shape=label, **extra))
+        if "turns_with_clone" in r:  # the relayouts' first design, off every path
+            first = key + "_v1"
+            entries.append(dict(KERNEL_INFO[first], name=f"{KERNEL_INFO[first]['name']}[{label}]",
+                                replaces=PROBE_REPLACES[label.split()[0] + " " + label.split()[1]], launches=0,
+                                max_abs_err=r["max_abs_err"], ms=r["turns_with_clone"]["first"],
+                                plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                                library_ms=r["library_ms"], shape=label, on_main_path=False))
     del flush
     torch.cuda.empty_cache()
     return cases, entries
@@ -1888,10 +2120,15 @@ KERNEL_INFO = {
                           source="latticefold_torch/csrc/int_gemm_sm90_kernel.cu"),
     "dma_checksum": dict(name="dma_checksum_kernel", route="cuda",
                          source="latticefold_torch/csrc/probe_kernels.cu"),
-    "bitcast": dict(name="bitcast_u8_kernel", route="cuda", source="latticefold_torch/csrc/probe_kernels.cu"),
-    "merge": dict(name="merge_minor_kernel", route="cuda", source="latticefold_torch/csrc/probe_kernels.cu"),
-    "poseidon": dict(name="poseidon_kernel", route="cuda", source="latticefold_torch/csrc/poseidon_kernel.cu",
+    "bitcast": dict(name="bitcast_u8_vec_kernel", route="cuda", source="latticefold_torch/csrc/probe_kernels.cu"),
+    "merge": dict(name="merge_minor_vec_kernel", route="cuda", source="latticefold_torch/csrc/probe_kernels.cu"),
+    "bitcast_v1": dict(name="bitcast_u8_kernel", route="cuda", source="latticefold_torch/csrc/probe_kernels.cu"),
+    "merge_v1": dict(name="merge_minor_kernel", route="cuda", source="latticefold_torch/csrc/probe_kernels.cu"),
+    "poseidon": dict(name="poseidon_sponge_kernel", route="cuda",
+                     source="latticefold_torch/csrc/poseidon_kernel.cu",
                      replaces="latticefold_tpu/transcript/device.py:74"),
+    "poseidon_perm": dict(name="poseidon_kernel", route="cuda", source="latticefold_torch/csrc/poseidon_kernel.cu",
+                          replaces="latticefold_tpu/transcript/device.py:74"),
 }
 # probe (the first two words of its label) -> its kernel, and the TPU kernel it replaces
 PROBE_KERNEL = {
@@ -1961,7 +2198,7 @@ def peak_sweep(device, wit_lens=(8192, 16384, 32768)):
     return out
 
 
-def kernel_entries(label, name, n, Nb, kres, launches, route_rec, kappa=None):
+def kernel_entries(label, name, n, Nb, kres, launches, route_rec, kappa=None, permutations=0):
     """The ``kernels`` JSON entries of one path (``label``, on ring ``name``
     at Ajtai width ``n``): each kernel at the shape the prove launches it at
     (the CRTs at crt N = n; the Hopper dot, the epilogue and the commit
@@ -1970,7 +2207,8 @@ def kernel_entries(label, name, n, Nb, kres, launches, route_rec, kappa=None):
     from the path's counted prove. A kernel the path does not launch (on a
     fold the SIMT CRT and the commit kernel) is marked off the main path.
     ``route_rec``: the fold's phase 1b record, or None on a path that does
-    not take the byte-plane route (then ``kappa`` is given)."""
+    not take the byte-plane route (then ``kappa`` is given).
+    ``permutations``: the Poseidon kernel's permutations in that prove."""
     if route_rec is None:
         entries = []
     else:
@@ -1980,7 +2218,8 @@ def kernel_entries(label, name, n, Nb, kres, launches, route_rec, kappa=None):
 
     for key, main in (("crt_tc", f"crt N={n}"), ("crt", f"crt N={n}"),
                       ("commit_sm90", f"kappa={kappa} n={n} Nb={Nb}"), ("commit", f"kappa={kappa} n={n} Nb={Nb}"),
-                      ("poseidon", poseidon_shape(get_ring(name)))):
+                      ("poseidon", poseidon_shape(get_ring(name))),
+                      ("poseidon_perm", poseidon_shape(get_ring(name)))):
         if (key, main) not in kres:
             continue
         r = kres[(key, main)]
@@ -1996,8 +2235,14 @@ def kernel_entries(label, name, n, Nb, kres, launches, route_rec, kappa=None):
         elif key == "commit":
             extra = dict(lane_floor_ms=r["lane_floor_ms"], new_ms=r["new_ms"])
         elif key == "poseidon":
-            extra = {k: r[k] for k in ("launch_floor_ms", "chain_ms", "latency_bound_ms", "max_sm_clock_mhz")}
-            extra["note"] = "replaces no Pallas kernel: the JAX package's permute is XLA"
+            extra = {k: r[k] for k in ("first_ms", "warm_ms", "first_warm_ms", "per_permutation", "launch_floor_ms",
+                                       "chain_ms", "first_chain_ms", "latency_bound_ms", "max_sm_clock_mhz")}
+            extra["permutations"] = permutations
+            extra["note"] = ("replaces no Pallas kernel: the JAX package's permute is XLA; one launch per absorb "
+                             "call and per squeeze call that permutes")
+        elif key == "poseidon_perm":
+            extra = {k: r[k] for k in ("warm_ms", "new_ms", "launch_floor_ms", "chain_ms", "latency_bound_ms")}
+            extra["note"] = "the first design (one permutation a launch): the sponge kernel's in-call baseline"
         entries.append(dict(
             info, ring=name, launches=launches.get(key, 0), max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
@@ -2098,7 +2343,7 @@ def run_bigm_phase(device, std_fold, std_proof, kres_std, plane_rec):
     return dict(forced_m15=forced, m18=big, kernels={f"{k}:{sh}": v for (k, sh), v in kres.items()}), entries
 
 
-def plus_launches(L: int, n: int, perms: int, k: int, n_lin: int = 1) -> dict:
+def plus_launches(L: int, n: int, calls: int, k: int, n_lin: int = 1) -> dict:
     """The launches of one ``PlusProver.prove`` of ``n_lin`` instances of
     width n that folds L instances (``n_lin`` of them new) at k digits: an
     ICRT in each ``RgInstance.from_f``, the ICRT and two CRTs of
@@ -2107,16 +2352,17 @@ def plus_launches(L: int, n: int, perms: int, k: int, n_lin: int = 1) -> dict:
     ``plus.sumcheck.prove_device`` absorbs coefficients) on the tensor-core
     CRT; in each ``from_f`` one batch commit per group of at most
     ``rgchk.mf_group_cols`` of its k d monomial columns and one of the
-    rest, and one in ``decompose``, on the Hopper commit kernel; a Poseidon
-    kernel for each of the ``perms`` permutations of the sumchecks' device
-    transcripts; nothing else (the first commit kernel 0)."""
+    rest, and one in ``decompose``, on the Hopper commit kernel; the
+    Poseidon sponge kernel once for each of the ``calls`` absorb calls and
+    squeeze calls that permute of the sumchecks' device transcripts (three a
+    round); nothing else (the first commit kernel 0)."""
     from latticefold_torch.plus import rgchk
     from latticefold_torch.rings.construct import get_ring
 
     ring = get_ring("frog")
     groups = -(-k * ring.d // rgchk.mf_group_cols(ring, n))
     return {"crt_tc": L + 3 + (n_lin + 2) * (n - 1).bit_length(), "commit_sm90": L * (groups + 1) + 1,
-            "poseidon": perms}
+            "poseidon": calls}
 
 
 @contextlib.contextmanager
@@ -2126,11 +2372,14 @@ def plus_device_rounds(acc: dict):
     ``acc["perms"]`` counts the permutations its schedule implies (a
     ``transcript.device.GhostSponge`` from the device sponge's bookkeeping:
     per round an absorb of (degree + 1) d coefficients, a squeeze and an
-    absorb of the challenge), ``acc["calls"]`` the calls."""
+    absorb of the challenge), ``acc["launches"]`` the sponge kernel's
+    launches it implies, ``acc["calls"]`` the calls, and ``acc["host_perms"]``
+    the permutations the host transcript makes inside ``prove_device``
+    (``sumcheck_host_perms``)."""
     from latticefold_torch.plus import sumcheck as psc
     from latticefold_torch.transcript import device as dtr
 
-    orig = psc._device_rounds
+    orig, orig_prove = psc._device_rounds, psc.prove_device
 
     def rounds(ring, sp, mles, nvars, degree, comb, consts):
         g = dtr.GhostSponge(ring, sp.index, sp.absorbing)
@@ -2139,26 +2388,44 @@ def plus_device_rounds(acc: dict):
             g.squeeze(1)
             g.absorb(1)
         acc["perms"] = acc.get("perms", 0) + g.perms
+        acc["launches"] = acc.get("launches", 0) + g.launches
         acc["calls"] = acc.get("calls", 0) + 1
         return no_sync(orig)(ring, sp, mles, nvars, degree, comb, consts)
 
     psc._device_rounds = rounds
+    psc.prove_device = sumcheck_host_perms(orig_prove, acc)
     try:
         yield acc
     finally:
-        psc._device_rounds = orig
+        psc._device_rounds, psc.prove_device = orig, orig_prove
+
+
+def sumcheck_host_perms(prove, acc: dict):
+    """A LatticeFold+ sumcheck prover (``prove_host`` or ``prove_device``)
+    that adds to ``acc["host_perms"]`` the permutations its host transcript
+    makes in the call (``host_permutations``). ``prove_device`` absorbs two
+    headers on the host and the rounds on the device, ``prove_host`` both
+    on the host: on the same transcript the device's permutations are the
+    difference of the two counts."""
+    def run(ring, transcript, *args, **kw):
+        with host_permutations(type(transcript.sponge), ring) as perms:
+            out = prove(ring, transcript, *args, **kw)
+            acc["host_perms"] = acc.get("host_perms", 0) + perms()
+        return out
+    return run
 
 
 @contextlib.contextmanager
-def plus_host_sumchecks():
+def plus_host_sumchecks(acc: dict):
     """The LatticeFold+ sumchecks on the host transcript (``prove_host``)
-    while the block runs, whatever the tables' device."""
+    while the block runs, whatever the tables' device; ``acc["host_perms"]``
+    counts their permutations (``sumcheck_host_perms``)."""
     from latticefold_torch.plus import sumcheck as psc
 
     orig = psc.prove
-    psc.prove = psc.prove_host
+    psc.prove = sumcheck_host_perms(psc.prove_host, acc)
     try:
-        yield
+        yield acc
     finally:
         psc.prove = orig
 
@@ -2287,9 +2554,12 @@ def plus_round(label, prover, c, L, device, host_sumchecks=False, n_lin=1):
     """One ``PlusProver.prove`` of ``n_lin`` copies of the instance ``c``
     that folds L instances, counted (``plus_launches``; with
     ``host_sumchecks`` the sumchecks take ``prove_host``: no Poseidon
-    kernel, no ICRT of round messages). Times the sponge and the prover's
-    parts (``plus_timers``), and takes each part's peak device memory
-    (``plus_part_peaks``). Returns (proof, record)."""
+    kernel, no ICRT of round messages). The sponge kernel's permutations
+    must equal its schedule's (``check_permutations``); the record's
+    ``sumcheck_host_perms`` are the host transcript's inside the sumchecks.
+    Times the sponge and the prover's parts (``plus_timers``), and takes
+    each part's peak device memory (``plus_part_peaks``). Returns (proof,
+    record)."""
     import torch
 
     from latticefold_torch import cuda
@@ -2302,7 +2572,7 @@ def plus_round(label, prover, c, L, device, host_sumchecks=False, n_lin=1):
     torch.cuda.reset_peak_memory_stats(device)
     live = torch.cuda.memory_allocated(device)
     sponge, parts, dev_rounds, peaks = {"s": 0.0}, {}, {}, {}
-    ctx = plus_host_sumchecks() if host_sumchecks else plus_device_rounds(dev_rounds)
+    ctx = plus_host_sumchecks(dev_rounds) if host_sumchecks else plus_device_rounds(dev_rounds)
     cuda.reset_launches()
     t0 = time.perf_counter()
     with sponge_timer(sponge_cls, sponge), plus_timers(parts), plus_part_peaks(peaks, device), ctx:
@@ -2311,7 +2581,8 @@ def plus_round(label, prover, c, L, device, host_sumchecks=False, n_lin=1):
     prove_s = time.perf_counter() - t0
     launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
     n, k = c.f.shape[0], prover.params.lin.decomp.k
-    expected = plus_launches(L, n, dev_rounds.get("perms", 0), k, n_lin)
+    expected = plus_launches(L, n, dev_rounds.get("launches", 0), k, n_lin)
+    perms = dev_rounds.get("perms", 0)
     if host_sumchecks:
         expected = {"crt_tc": L + 3, "commit_sm90": expected["commit_sm90"]}
     elif dev_rounds.get("calls") != n_lin + 3:
@@ -2319,15 +2590,17 @@ def plus_round(label, prover, c, L, device, host_sumchecks=False, n_lin=1):
                              f"{n_lin + 3}")
     if launches != expected:
         raise AssertionError(f"LatticeFold+ prove [{label}]: launches {launches}, expected {expected}")
+    check_permutations(f"LatticeFold+ prove [{label}]", perms)
     peak = peaks.pop("all")
     reserved = peaks.pop("reserved")
     check_peak(f"LatticeFold+ [{label}]", peak, device)
     rec = dict(L=L, prove_s=prove_s, sponge_s=sponge["s"], parts_s=parts, peak_bytes=peak,
                reserved_bytes=reserved, live_bytes=live, parts_peak_bytes=peaks, launches=launches,
+               permutations=perms, sumcheck_host_perms=dev_rounds.get("host_perms", 0),
                sumcheck="host" if host_sumchecks else "device")
     log(f"[plus {label}] prove {prove_s:.3f} s (L={L}, {rec['sumcheck']} sumchecks; host sponge {sponge['s']:.3f} s; "
         f"parts { {k: round(v, 3) for k, v in parts.items()} }), peak device memory {peak} B ({live} B held at "
-        f"its start; reserved {reserved} B; by part {peaks}), launches {launches}")
+        f"its start; reserved {reserved} B; by part {peaks}), launches {launches}, {perms} Poseidon permutations")
     return proof, rec
 
 
@@ -2377,7 +2650,9 @@ def run_plus_bench(device, kres_crt):
     (Nb 1, 2, 3 and k d), one counted ``PlusProver.prove`` (L = 1), the
     port's verifier on a fresh transcript, the proof's serialization round
     trip; then the same prove with the host-transcript sumchecks, which
-    must give the same bytes (the pairs in turns are ``plus_bench_turns``,
+    must give the same bytes, and in which the host transcript must make as
+    many permutations more as the Poseidon kernel made in the first
+    (``sumcheck_host_perms``; the pairs in turns are ``plus_bench_turns``,
     under ``--plus-sweep``). Returns (record, kernels JSON entries)."""
     import zlib
 
@@ -2405,6 +2680,11 @@ def run_plus_bench(device, kres_crt):
     host_proof, host_rnd = plus_round(f"{label} host sumchecks", host_prover, c, 1, device, host_sumchecks=True)
     if ser.serialize_plus_proof(ring, host_proof) != blob:
         raise AssertionError(f"[plus {label}] the host-sumcheck prove gives other bytes than the device one")
+    want = host_rnd["sumcheck_host_perms"] - rnd["sumcheck_host_perms"]
+    if rnd["permutations"] != want:
+        raise AssertionError(f"[plus {label}] the Poseidon kernel ran {rnd['permutations']} permutations, the host "
+                             f"transcript {want} in the same sumchecks")
+    log(f"[plus {label}] the Poseidon kernel's {want} permutations equal the host transcript's in the same sumchecks")
     del host_prover, host_proof
     if ser.serialize_plus_proof(ring, ser.deserialize_plus_proof(ring, blob)) != blob:
         raise AssertionError(f"[plus {label}] the proof does not survive a round trip")
@@ -2413,7 +2693,8 @@ def run_plus_bench(device, kres_crt):
                host_sumchecks=host_rnd, kernels={f"{kk}:{sh}": v for (kk, sh), v in kres.items()})
     log(f"[plus {label}] verify {verify_s:.3f} s: the port's verifier accepts; proof {len(blob)} B "
         f"({rec['proof_zlib_bytes']} B zlib)")
-    entries = kernel_entries(label, "frog", n, k * ring.d, {**kres_crt, **kres}, rnd["launches"], None, kappa)
+    entries = kernel_entries(label, "frog", n, k * ring.d, {**kres_crt, **kres}, rnd["launches"], None, kappa,
+                             rnd["permutations"])
     del prover, proof, scheme, c
     return rec, entries
 
@@ -2459,7 +2740,8 @@ def run_plus_multi(device, kres_crt):
     if rounds >= 3 and recs[2]["peak_bytes"] > recs[1]["peak_bytes"] * (1 + PLUS_PEAK_NOISE):
         raise AssertionError(f"[plus {label}] round 3's peak {recs[2]['peak_bytes']} B passes round 2's "
                              f"{recs[1]['peak_bytes']} B by more than {PLUS_PEAK_NOISE}")
-    entries = kernel_entries(label, "frog", n, k * ring.d, {**kres_crt, **kres}, recs[1]["launches"], None, kappa)
+    entries = kernel_entries(label, "frog", n, k * ring.d, {**kres_crt, **kres}, recs[1]["launches"], None, kappa,
+                             recs[1]["permutations"])
     del prover, verifier, scheme, c
     torch.cuda.empty_cache()
     return dict(n=n, k=k, kappa=kappa, B=B, setup_s=setup_s, rounds=recs, route=route,
@@ -2581,7 +2863,8 @@ def run_plus_top(device, kres_crt):
     rec, _, kres = plus_point(label, n, k, kappa, 1, device, commit_nbs=(1, 2, 3, k * ring.d))
     kres = {**kcrt, **kres}
     rec["kernels"] = {f"{kk}:{sh}": v for (kk, sh), v in kres.items()}
-    return rec, kernel_entries(label, "frog", n, k * ring.d, {**kres_crt, **kres}, rec["launches"], None, kappa)
+    return rec, kernel_entries(label, "frog", n, k * ring.d, {**kres_crt, **kres}, rec["launches"], None, kappa,
+                               rec["permutations"])
 
 
 def run_plus_k3(device, kres_crt):
@@ -2603,7 +2886,8 @@ def run_plus_k3(device, kres_crt):
         raise AssertionError(f"[plus {label}] sha256 {rec['sha256']}, the JAX prover's {PLUS_K3_SHA256}")
     log(f"[plus {label}] the JAX prover's digest")
     rec["kernels"] = {f"{kk}:{sh}": v for (kk, sh), v in kres.items()}
-    return rec, kernel_entries(label, "frog", n, k * ring.d, {**kres_crt, **kres}, rec["launches"], None, kappa)
+    return rec, kernel_entries(label, "frog", n, k * ring.d, {**kres_crt, **kres}, rec["launches"], None, kappa,
+                               rec["permutations"])
 
 
 def plus_bench_turns(device):
@@ -2673,7 +2957,8 @@ def plus_peak_sweep(device):
             rec, _, kres = plus_point(label, n, k, kappa, L, device, commit_nbs=nbs, setups=setups)
             if kres:
                 rec["kernels"] = {f"{kk}:{sh}": v for (kk, sh), v in kres.items()}
-                entries += kernel_entries(label, "frog", n, nbs[-1], kres, rec["launches"], None, kappa)
+                entries += kernel_entries(label, "frog", n, nbs[-1], kres, rec["launches"], None, kappa,
+                                          rec["permutations"])
         except torch.OutOfMemoryError as e:
             # the prover's frames (plus/, arith/) and the innermost one
             tb = [f for f in traceback.extract_tb(e.__traceback__) if "latticefold_torch" in f.filename]
@@ -2711,7 +2996,7 @@ def run_plus_phase(device, kres_frog=None, cpu_small=None):
         flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
         kres_frog = check_crt("frog plus", get_ring("frog"), n, device, flush, n // k)
         del flush
-    kres_crt = {key: v for key, v in kres_frog.items() if key[0] in ("crt_tc", "poseidon")}
+    kres_crt = {key: v for key, v in kres_frog.items() if key[0] in ("crt_tc", "poseidon", "poseidon_perm")}
     record = {}
     record["bench"], entries = run_plus_bench(device, kres_crt)
     torch.cuda.empty_cache()
@@ -2767,7 +3052,8 @@ def run_paths(device, smi, cpu_jobs, profile):
                                   record["plane_commit"][f"{name} fold"])
         if fold["device_nifs"]:
             entries += kernel_entries(f"{name} DeviceNIFS", name, scheme.n, dp.K - 1, kres,
-                                      fold["device_nifs"]["launches"], record["plane_commit"][f"{name} fold"])
+                                      fold["device_nifs"]["launches"], record["plane_commit"][f"{name} fold"],
+                                      permutations=fold["device_nifs"]["permutations"])
         del scheme
         torch.cuda.empty_cache()
 
@@ -2778,7 +3064,8 @@ def run_paths(device, smi, cpu_jobs, profile):
     n_chain = WIT_LEN * getattr(params, PATHS[CHAIN[0]][0]).L
     entries += kernel_entries(f"{CHAIN[0]} DeviceNIFS chain", CHAIN[0], n_chain,
                               getattr(params, PATHS[CHAIN[0]][0]).K - 1, kres_by_ring[CHAIN[0]],
-                              record["fused_chain"]["steps"][0]["launches"], record["plane_commit"][f"{CHAIN[0]} fold"])
+                              record["fused_chain"]["steps"][0]["launches"], record["plane_commit"][f"{CHAIN[0]} fold"],
+                              permutations=record["fused_chain"]["steps"][0]["permutations"])
     # phase 3c: moderate b
     record["moderate_b"], ent = run_moderate_b_phase(device, kres_by_ring[MODERATE_B[0]], record["plane_commit"])
     entries += ent

@@ -14,6 +14,15 @@
 // lf_bitcast_u8 and lf_merge_minor replace benches/exp_pallas_probe.py's
 // `k_bitcast` (u32 [8, 128] -> its bytes as u8 [8, 512]) and `k_merge`
 // ([8, 16, 4] -> [8, 64]): byte-exact copies, launch-bound at these sizes.
+// On contiguous little-endian memory both functions are the identity on
+// bytes (the bitcast's bytes are the words' bytes in order; the merge's
+// rows are the input's rows), so each is one block copying 16-byte vectors,
+// with no integer division, and a 4-byte scalar tail only where the size is
+// not a multiple of 16 bytes (pointers 16-byte aligned: the launcher
+// checks). lf_bitcast_u8_v1 and lf_merge_minor_v1 are the first design (a
+// thread per word: four single-byte stores, or four 64-bit divisions or
+// modulos), the in-call baseline that chip_smoke.py times, launched by no
+// path.
 
 #include <cuda_runtime.h>
 
@@ -65,6 +74,26 @@ __global__ void merge_minor_kernel(const u32* __restrict__ y, int R, int X, int 
   out[(long long)r * X * NL + x * NL + l] = y[((long long)r * X + x) * NL + l];
 }
 
+constexpr int COPY_THREADS = 256;
+
+// one block: words [0, n16) as 16-byte vectors, then the tail's 4-byte words
+__device__ __forceinline__ void copy16(const uint4* __restrict__ src, uint4* __restrict__ dst, long long n16,
+                                       int tail_words) {
+  for (long long i = threadIdx.x; i < n16; i += COPY_THREADS) dst[i] = src[i];
+  if (threadIdx.x < tail_words)
+    reinterpret_cast<u32*>(dst + n16)[threadIdx.x] = reinterpret_cast<const u32*>(src + n16)[threadIdx.x];
+}
+
+__global__ void __launch_bounds__(COPY_THREADS)
+    bitcast_u8_vec_kernel(const uint4* __restrict__ x, long long n16, int tail_words, uint4* __restrict__ out) {
+  copy16(x, out, n16, tail_words);
+}
+
+__global__ void __launch_bounds__(COPY_THREADS)
+    merge_minor_vec_kernel(const uint4* __restrict__ y, long long n16, int tail_words, uint4* __restrict__ out) {
+  copy16(y, out, n16, tail_words);
+}
+
 }  // namespace
 
 // a_bytes, w_words: per component; out: c u32, zeroed by the caller.
@@ -77,13 +106,30 @@ extern "C" int lf_dma_checksum(const void* A, long long a_bytes, const void* W, 
   return (int)cudaGetLastError();
 }
 
+static bool aligned16(const void* p) { return ((unsigned long long)p & 15) == 0; }
+
 extern "C" int lf_bitcast_u8(const void* x, long long nwords, void* out, void* stream) {
+  if (nwords < 0 || !aligned16(x) || !aligned16(out)) return (int)cudaErrorInvalidValue;
+  bitcast_u8_vec_kernel<<<1, COPY_THREADS, 0, (cudaStream_t)stream>>>((const uint4*)x, nwords / 4, (int)(nwords % 4),
+                                                                        (uint4*)out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int lf_merge_minor(const void* y, int R, int X, int NL, void* out, void* stream) {
+  const long long total = (long long)R * X * NL;
+  if (total < 0 || !aligned16(y) || !aligned16(out)) return (int)cudaErrorInvalidValue;
+  merge_minor_vec_kernel<<<1, COPY_THREADS, 0, (cudaStream_t)stream>>>((const uint4*)y, total / 4, (int)(total % 4),
+                                                                         (uint4*)out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int lf_bitcast_u8_v1(const void* x, long long nwords, void* out, void* stream) {
   bitcast_u8_kernel<<<(unsigned)((nwords + 255) / 256), 256, 0, (cudaStream_t)stream>>>(
       (const u32*)x, nwords, (unsigned char*)out);
   return (int)cudaGetLastError();
 }
 
-extern "C" int lf_merge_minor(const void* y, int R, int X, int NL, void* out, void* stream) {
+extern "C" int lf_merge_minor_v1(const void* y, int R, int X, int NL, void* out, void* stream) {
   const long long total = (long long)R * X * NL;
   merge_minor_kernel<<<(unsigned)((total + 255) / 256), 256, 0, (cudaStream_t)stream>>>(
       (const u32*)y, R, X, NL, (u32*)out);

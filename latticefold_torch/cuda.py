@@ -8,8 +8,9 @@ takes seconds) and loaded with ``ctypes``. Builds happen at first use, one
 rebuilt when any source or header is newer than it.
 
 Every launcher returns the ``cudaGetLastError`` code of its launches and the
-wrappers raise when it is not 0. ``LAUNCHES`` counts launches per kernel:
-the wrappers in ``rings/ops.py``, ``rings/mxu.py``, ``rings/plane_commit.py``,
+wrappers raise when it is not 0. ``LAUNCHES`` counts launches per kernel
+(and ``PERMUTATIONS`` the Poseidon kernels' permutations): the wrappers in
+``rings/ops.py``, ``rings/mxu.py``, ``rings/plane_commit.py``,
 ``rings/plane_probes.py`` and ``transcript/device.py`` add one where they
 launch and nowhere else.
 """
@@ -64,10 +65,16 @@ _ARGTYPES = {
     "dma_checksum": ("probe", "lf_dma_checksum", [_P, _LL, _P, _LL, _P, _I, _I, _P]),
     "bitcast": ("probe", "lf_bitcast_u8", [_P, _LL, _P, _P]),
     "merge": ("probe", "lf_merge_minor", [_P, _I, _I, _I, _P, _P]),
-    "poseidon": ("poseidon_kernel", "lf_poseidon", [_P, _P, _I, _I, _P, _P, _P] + [_I] * 4 + [_U64P, _P]),
+    "bitcast_v1": ("probe", "lf_bitcast_u8_v1", [_P, _LL, _P, _P]),
+    "merge_v1": ("probe", "lf_merge_minor_v1", [_P, _I, _I, _I, _P, _P]),
+    "poseidon": ("poseidon_kernel", "lf_poseidon_sponge", [_P] * 5 + [_I] * 9 + [_U64P, _P]),
+    "poseidon_perm": ("poseidon_kernel", "lf_poseidon", [_P, _P, _I, _I, _P, _P, _P] + [_I] * 4 + [_U64P, _P]),
 }
 
 LAUNCHES = {name: 0 for name in _ARGTYPES}
+# permutations run by the Poseidon kernels' launches (the sponge kernel runs
+# a whole absorb or squeeze call, several permutations, in one launch)
+PERMUTATIONS = {"poseidon": 0, "poseidon_perm": 0}
 BUILD_LOG: dict = {}  # library name -> nvcc's output (ptxas resource usage)
 
 _lock = threading.Lock()
@@ -76,8 +83,9 @@ _fns: dict = {}
 
 
 def reset_launches():
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, PERMUTATIONS):
+        for name in counts:
+            counts[name] = 0
 
 
 def _nvcc() -> str:

@@ -284,7 +284,7 @@ class DeviceNIFS:
         self._lin_comb = lin_mod._lin_comb(ring, tuple(tuple(s) for s in ccs.S), tuple(ccs.c), dev)
         self._fold_comb = fold_mod._folding_comb(ring, 2 * dp.K, ring.tau, dp.b, dev)
         scheme._fused_planes  # noqa: B018 -- the byte-plane route's planes, made once
-        dtr.device_consts(ring, dev)
+        dtr.sponge_consts(ring, dev)
 
     def _trace(self, state0, idx0: int, abs0: bool, acc: DevLCCCS, w_acc: Witness,
                cmi_cm, cmi_x, w_i: Witness):

@@ -266,27 +266,60 @@ def bf16_gemm(a, b):
 
 
 def bitcast_u8(x):
-    """u32 words [R, W] (int32) -> their little-endian bytes [R, 4 W] uint8."""
+    """u32 words [R, W] (int32) -> their little-endian bytes [R, 4 W] uint8;
+    on the card kernel D's vector copy (``probe_kernels.cu``)."""
     if x.device.type == "cpu":
         return x.contiguous().view(torch.uint8)
+    return _bitcast(x, "bitcast")
+
+
+def bitcast_u8_v1(x):
+    """``bitcast_u8`` on kernel D's first design (a thread per word, four
+    byte stores): the vector copy's in-call baseline, launched by no path."""
+    if x.device.type == "cpu":
+        return x.contiguous().view(torch.uint8)
+    return _bitcast(x, "bitcast_v1")
+
+
+def _bitcast(x, kernel: str):
     if x.dtype != torch.int32 or not x.is_contiguous():
         raise ValueError("bitcast_u8: a contiguous int32 tensor expected")
+    if x.data_ptr() % 16:
+        raise ValueError("bitcast_u8: the tensor's data must be 16-byte aligned")
     out = torch.empty(x.shape[:-1] + (4 * x.shape[-1],), dtype=torch.uint8, device=x.device)
-    code = cuda.kernel("bitcast")(x.data_ptr(), x.numel(), out.data_ptr(), cuda.stream_handle(x.device))
-    cuda.check(code, "bitcast")
-    cuda.LAUNCHES["bitcast"] += 1
+    code = cuda.kernel(kernel)(x.data_ptr(), x.numel(), out.data_ptr(), cuda.stream_handle(x.device))
+    cuda.check(code, kernel)
+    cuda.LAUNCHES[kernel] += 1
     return out
 
 
 def merge_minor(y):
-    """[R, X, NL] u32 words (int32) -> [R, X NL]."""
+    """[R, X, NL] u32 words (int32) -> [R, X NL]; on the card kernel D's
+    vector copy (``probe_kernels.cu``)."""
     R, X, NL = y.shape
     if y.device.type == "cpu":
         return y.reshape(R, X * NL).clone()
+    return _merge(y, "merge")
+
+
+def merge_minor_v1(y):
+    """``merge_minor`` on kernel D's first design (a thread per word, its
+    indices by division): the vector copy's in-call baseline, launched by no
+    path."""
+    R, X, NL = y.shape
+    if y.device.type == "cpu":
+        return y.reshape(R, X * NL).clone()
+    return _merge(y, "merge_v1")
+
+
+def _merge(y, kernel: str):
+    R, X, NL = y.shape
     if y.dtype != torch.int32 or not y.is_contiguous():
         raise ValueError("merge_minor: a contiguous int32 tensor expected")
+    if y.data_ptr() % 16:
+        raise ValueError("merge_minor: the tensor's data must be 16-byte aligned")
     out = torch.empty((R, X * NL), dtype=torch.int32, device=y.device)
-    code = cuda.kernel("merge")(y.data_ptr(), R, X, NL, out.data_ptr(), cuda.stream_handle(y.device))
-    cuda.check(code, "merge")
-    cuda.LAUNCHES["merge"] += 1
+    code = cuda.kernel(kernel)(y.data_ptr(), R, X, NL, out.data_ptr(), cuda.stream_handle(y.device))
+    cuda.check(code, kernel)
+    cuda.LAUNCHES[kernel] += 1
     return out

@@ -14,11 +14,14 @@ absorbs and its challenges. Absorbing a device ring element (already
 Montgomery) is a plain modular add, and a squeezed challenge comes out in
 the [e, nl] layout that ``poly.mle.fold`` takes.
 
-``permute`` launches the hand-written kernel ``csrc/poseidon_kernel.cu`` on
-a CUDA state and runs the plain version ``permute_plain`` on a CPU state.
-The kernel adds the rate chunk that fills the rate before a permutation, so
-an absorb of n values costs about n / rate launches; the add that leaves
-the sponge mid-rate is a torch ``mo.add``.
+On a CUDA state each absorb call, and each squeeze call that permutes,
+is one launch of the sponge kernel (``csrc/poseidon_kernel.cu``
+``lf_poseidon_sponge``): its permutations back to back in one block, the
+rate chunks and the trailing chunk added there, squeezed words written
+out (a squeeze that does not permute is a slice of the state). On a CPU
+state the same calls run one permutation at a time with ``permute_plain``,
+the kernels' reference. ``_permute_kernel`` launches the first design
+(``lf_poseidon``, one permutation a launch), which no path takes.
 """
 
 from __future__ import annotations
@@ -62,6 +65,166 @@ def device_consts(ring: Ring, device: torch.device):
     return constant(ark, device), constant(mds, device)
 
 
+def _solve_left(A, b, q: int):
+    """x with x A = b mod q (A square); raises when A is singular mod q."""
+    n = len(A)
+    rows = [[A[j][i] % q for j in range(n)] + [b[i] % q] for i in range(n)]  # A^T | b^T
+    for col in range(n):
+        piv = next((r for r in range(col, n) if rows[r][col]), None)
+        if piv is None:
+            raise ValueError("singular matrix mod q")
+        rows[col], rows[piv] = rows[piv], rows[col]
+        inv = pow(rows[col][col], -1, q)
+        rows[col] = [v * inv % q for v in rows[col]]
+        for r in range(n):
+            if r != col and rows[r][col]:
+                f = rows[r][col]
+                rows[r] = [(a - f * c) % q for a, c in zip(rows[r], rows[col])]
+    return [rows[i][n] for i in range(n)]
+
+
+@functools.lru_cache(maxsize=None)
+def fast_consts(ring: Ring) -> dict:
+    """The factored permutation's constants as ints mod q (csrc/poseidon.cuh,
+    the equivalent form of the Poseidon paper, eprint 2019/458, appendix B):
+
+    - ``ark`` [rf][t]: the full rounds' constants; the first full round
+      after the partial ones also takes what the partial rounds' constants
+      carry forward (each partial round keeps the constant of word 0, the
+      rest of its vector goes through that round's MDS product into the
+      next round's);
+    - ``mds`` [t][t]; ``pre`` [t][t] = B_1 M, the last full round before the
+      partial ones;
+    - ``part`` [rp][2t]: partial round k's scalar constant, then S_k's
+      corner, row 0 (words 1 .. t-1) and column 0 (words 1 .. t-1), where
+      each partial round's matrix A = S B with B = diag(1, A11) moved into
+      the round before (A = M for the last one, B M for the others);
+    - ``cmat`` [rp][rp]: C_lk = sum_{j>0} S_l[0][j] v_k[j] for k < l, else 0
+      (v_k = S_k's column 0), with which the kernel unrolls the partial
+      rounds' dots (csrc/poseidon.cuh).
+
+    The factoring needs the (t-1) x (t-1) minor M11 of the MDS matrix to be
+    invertible mod q (each A11 is a power of it); raises if it is not."""
+    cfg = get_config(ring.q)
+    q, t = ring.q, cfg.rate + cfg.capacity
+    rf, rp, half = cfg.full_rounds, cfg.partial_rounds, cfg.full_rounds // 2
+    M, ark = [list(r) for r in cfg.mds], cfg.ark
+    carry, scal = [0] * t, []
+    for r in range(half, half + rp):
+        ce = [(a + c) % q for a, c in zip(ark[r], carry)]
+        scal.append(ce[0])
+        carry = [sum(M[i][j] * ce[j] for j in range(1, t)) % q for i in range(t)]
+    ark_full = ([list(ark[r]) for r in range(half)]
+                + [[(a + c) % q for a, c in zip(ark[half + rp], carry)]]
+                + [list(ark[r]) for r in range(half + rp + 1, rf + rp)])
+    A, sparse = M, [None] * rp
+    for k in reversed(range(rp)):
+        A11 = [row[1:] for row in A[1:]]
+        try:
+            s01 = _solve_left(A11, A[0][1:], q)
+        except ValueError:
+            raise ValueError(f"Poseidon [{ring.name}]: the MDS matrix's ({t - 1} x {t - 1}) minor is singular mod "
+                             "q; the factored partial rounds need it invertible") from None
+        sparse[k] = [scal[k], A[0][0]] + s01 + [A[i][0] for i in range(1, t)]
+        A = [list(M[0])] + [[sum(A11[i][l] * M[l + 1][j] for l in range(t - 1)) % q for j in range(t)]
+                            for i in range(t - 1)]
+    cmat = [[sum(sparse[l][1 + j] * sparse[k][t + j] for j in range(1, t)) % q if k < l else 0
+             for k in range(rp)] for l in range(rp)]
+    return dict(ark=ark_full, mds=M, pre=A, part=sparse, cmat=cmat)
+
+
+@functools.lru_cache(maxsize=None)
+def sponge_consts(ring: Ring, device: torch.device):
+    """``fast_consts`` Montgomery-encoded as the sponge kernel's Elems (u32 at
+    nl 1, u64 at nl 2, four u64 at nl 8; ark, mds, pre, part, cmat in turn),
+    zero-padded to 16 bytes, in an int64 tensor on ``device``; and its size
+    in bytes."""
+    fc = fast_consts(ring)
+    q, R, width = ring.q, 1 << (32 * ring.nl), 4 * ring.nl
+    vals = [v for key in ("ark", "mds", "pre", "part", "cmat") for row in fc[key] for v in row]
+    buf = b"".join((v * R % q).to_bytes(width, "little") for v in vals)
+    buf += bytes(-len(buf) % 16)
+    return constant(np.frombuffer(buf, dtype="<i8"), device), len(buf)
+
+
+def call_segments(n: int, idx: int, switch: bool, rate: int) -> List[Tuple[int, int, int]]:
+    """The segments (w, cnt, pos) of one absorb or squeeze call of n > 0
+    values at rate index ``idx`` (0 after a mode switch, whose permutation
+    comes first): segment k touches rate words [w, w + cnt) with the call's
+    values [pos, pos + cnt), and a permutation follows every segment but
+    the last. The schedule of ``TraceSponge.absorb`` / ``squeeze``, as the
+    sponge kernel runs it (csrc/poseidon.cuh ``lf_call_seg``)."""
+    if switch:
+        idx = 0
+    segs = [(idx, min(n, rate - idx), 0)]
+    pos = rate - idx
+    while pos < n:
+        segs.append((0, min(rate, n - pos), pos))
+        pos += rate
+    return segs
+
+
+def call_plan(n: int, idx: int, switch: bool, rate: int) -> Tuple[int, int]:
+    """(permutations, rate index afterwards) of one call (``call_segments``)."""
+    segs = call_segments(n, idx, switch, rate)
+    w, cnt, _ = segs[-1]
+    return int(switch) + len(segs) - 1, w + cnt
+
+
+def sponge_call_plain(ring: Ring, state, vals, n: int, idx: int, switch: bool, perm=None):
+    """Plain version of the sponge kernel (``sponge_call``) on the state's
+    device: the call's segments with ``permute_plain`` (or ``perm(state)``)
+    between them. Returns (state, squeezed [n, nl] or None)."""
+    perm = perm or (lambda st: permute_plain(ring, st))
+    cfg = get_config(ring.q)
+    cap = cfg.capacity
+    if switch:
+        state = perm(state)
+    segs = call_segments(n, idx, switch, cfg.rate)
+    out = []
+    for k, (w, cnt, pos) in enumerate(segs):
+        if vals is not None:
+            state = _with_chunk(ring, state, vals[pos : pos + cnt], w)
+        else:
+            out.append(state[cap + w : cap + w + cnt])
+        if k + 1 < len(segs):
+            state = perm(state)
+    return state, None if vals is not None else torch.cat(out)
+
+
+def sponge_call(ring: Ring, state, vals, n: int, idx: int, switch: bool):
+    """One absorb (``vals`` [n, nl]) or squeeze (``vals`` None) call of the
+    sponge kernel (csrc/poseidon_kernel.cu ``lf_poseidon_sponge``) on a CUDA
+    ``state`` [t, nl] at rate index ``idx``, after a mode switch if
+    ``switch``. Returns (state, squeezed [n, nl] or None)."""
+    dev = state.device
+    cfg = get_config(ring.q)
+    t = cfg.rate + cfg.capacity
+    cuda.require_tensor(state, "poseidon state", dev)
+    if tuple(state.shape) != (t, ring.nl):
+        raise ValueError(f"poseidon state: shape {tuple(state.shape)}, expected ({t}, {ring.nl})")
+    if n <= 0 or not 0 <= idx <= cfg.rate:
+        raise ValueError(f"poseidon call: {n} values at rate index {idx}")
+    if vals is not None:
+        cuda.require_tensor(vals, "poseidon values", dev)
+        if tuple(vals.shape) != (n, ring.nl):
+            raise ValueError(f"poseidon values: shape {tuple(vals.shape)}, expected ({n}, {ring.nl})")
+    consts, cbytes = sponge_consts(ring, dev)
+    perms, _ = call_plan(n, idx, switch, cfg.rate)
+    out_state = torch.empty_like(state)
+    out = None if vals is not None else torch.empty((n, ring.nl), dtype=torch.int64, device=dev)
+    code = cuda.kernel("poseidon")(
+        state.data_ptr(), None if vals is None else vals.data_ptr(), None if out is None else out.data_ptr(),
+        out_state.data_ptr(), consts.data_ptr(), cbytes, n, idx, int(switch), t, cfg.rate,
+        cfg.full_rounds, cfg.partial_rounds, ring.nl, cuda.field_constants(ring.q, ring.nl),
+        cuda.stream_handle(dev),
+    )
+    cuda.check(code, "poseidon")
+    cuda.LAUNCHES["poseidon"] += 1
+    cuda.PERMUTATIONS["poseidon"] += perms
+    return out_state, out
+
+
 def _with_chunk(ring: Ring, state, chunk, idx: int):
     """``state`` with ``chunk`` [k, nl] added at rate index ``idx``."""
     if chunk is None or chunk.shape[0] == 0:
@@ -71,19 +234,12 @@ def _with_chunk(ring: Ring, state, chunk, idx: int):
     return torch.cat([state[:lo], seg, state[lo + chunk.shape[0] :]])
 
 
-def permute(ring: Ring, state, chunk=None, idx: int = 0):
-    """One Poseidon permutation of ``state`` [t, nl] (Montgomery limbs), after
-    adding ``chunk`` [k, nl] at rate index ``idx`` (a chunk that reaches the
-    end of the rate). A CUDA state launches the Poseidon kernel, a CPU state
-    runs ``permute_plain``."""
-    if state.device.type == "cpu":
-        return permute_plain(ring, state, chunk, idx)
-    return _permute_kernel(ring, state, chunk, idx)
-
-
 def _permute_kernel(ring: Ring, state, chunk, idx: int):
-    """Launch csrc/poseidon_kernel.cu: one block of one warp, a lane per
-    state word."""
+    """One Poseidon permutation of a CUDA ``state`` [t, nl] after adding
+    ``chunk`` [k, nl] at rate index ``idx``, on the first design
+    (csrc/poseidon_kernel.cu ``lf_poseidon``: one block of one warp, a lane
+    per state word): the sponge kernel's in-call baseline, launched by no
+    path (its plain version is ``permute_plain``)."""
     dev = state.device
     cfg = get_config(ring.q)
     ark, mds = device_consts(ring, dev)
@@ -96,14 +252,15 @@ def _permute_kernel(ring: Ring, state, chunk, idx: int):
         if chunk.shape[1:] != (ring.nl,) or idx + k > cfg.rate:
             raise ValueError(f"poseidon chunk: shape {tuple(chunk.shape)} at rate index {idx}")
     out = torch.empty_like(state)
-    code = cuda.kernel("poseidon")(
+    code = cuda.kernel("poseidon_perm")(
         state.data_ptr(), chunk.data_ptr() if k else None, k, cfg.capacity + idx,
         ark.data_ptr(), mds.data_ptr(), out.data_ptr(), state.shape[0],
         cfg.full_rounds, cfg.partial_rounds, ring.nl,
         cuda.field_constants(ring.q, ring.nl), cuda.stream_handle(dev),
     )
-    cuda.check(code, "poseidon")
-    cuda.LAUNCHES["poseidon"] += 1
+    cuda.check(code, "poseidon_perm")
+    cuda.LAUNCHES["poseidon_perm"] += 1
+    cuda.PERMUTATIONS["poseidon_perm"] += 1
     return out
 
 
@@ -258,12 +415,19 @@ class TraceSponge:
         self.absorbing = absorbing
 
     def _permute(self, chunk=None, idx: int = 0):
-        self.state = permute(self.ring, self.state, chunk, idx)
+        self.state = permute_plain(self.ring, self.state, chunk, idx)
 
     def absorb(self, vals):
-        """Absorb ``vals`` [n, nl] (Montgomery field elements)."""
+        """Absorb ``vals`` [n, nl] (Montgomery field elements): on the card
+        one launch of the sponge kernel, on the CPU one permutation at a
+        time."""
         n = int(vals.shape[0])
         if n == 0:
+            return
+        if self.state.device.type != "cpu":
+            _, idx = call_plan(n, self.index, not self.absorbing, self.rate)
+            self.state, _ = sponge_call(self.ring, self.state, vals.contiguous(), n, self.index, not self.absorbing)
+            self.absorbing, self.index = True, idx
             return
         if not self.absorbing:
             self._permute()
@@ -281,9 +445,16 @@ class TraceSponge:
 
     def squeeze(self, n: int):
         """Squeeze n field elements -> [n, nl] (Montgomery). n = 0 changes
-        nothing, as in the host sponge."""
+        nothing, as in the host sponge. On the card a call that permutes is
+        one launch of the sponge kernel; one that does not is a slice of
+        the state."""
         if n == 0:
             return self.state[:0]
+        perms, idx = call_plan(n, self.index, self.absorbing, self.rate)
+        if perms and self.state.device.type != "cpu":
+            self.state, out = sponge_call(self.ring, self.state, None, n, self.index, self.absorbing)
+            self.absorbing, self.index = False, idx
+            return out
         if self.absorbing:
             self._permute()
             self.absorbing, self.index = False, 0
@@ -326,7 +497,9 @@ class GhostSponge:
     """Index / mode-only duplex simulator: the (index, absorbing) trajectory
     of an absorb / squeeze schedule, with no state. ``perms`` counts the
     permutations that ``TraceSponge`` makes on the same schedule (a switch
-    of mode permutes, and so does each crossing of the end of the rate)."""
+    of mode permutes, and so does each crossing of the end of the rate),
+    ``launches`` its launches of the sponge kernel on the card (each absorb
+    call, and each squeeze call that permutes)."""
 
     def __init__(self, ring: Ring, index: int, absorbing: bool):
         _, _, cfg = _perm_consts(ring)
@@ -334,18 +507,15 @@ class GhostSponge:
         self.index = index
         self.absorbing = absorbing
         self.perms = 0
+        self.launches = 0
 
     def _run(self, n: int, absorbing: bool):
         if n == 0:
             return
-        if self.absorbing != absorbing:
-            self.absorbing, self.index = absorbing, 0
-            self.perms += 1
-        while self.index + n > self.rate:
-            n -= self.rate - self.index
-            self.index = 0
-            self.perms += 1
-        self.index += n
+        perms, self.index = call_plan(n, self.index, self.absorbing != absorbing, self.rate)
+        self.absorbing = absorbing
+        self.perms += perms
+        self.launches += absorbing or perms > 0
 
     def absorb(self, n: int):
         self._run(n, True)

@@ -11,6 +11,15 @@ against the JAX package, on the CPU (the plain permutation).
   rate and switches modes. The JAX package's ``TraceSponge`` itself is not
   run: its permutation takes minutes a call on XLA:CPU (its own test above
   holds it to the same host transcript).
+- The sponge kernel's call-level schedule (``call_segments`` / ``call_plan``,
+  run by its plain version ``sponge_call_plain``; the kernel's
+  csrc/poseidon.cuh ``lf_call_seg`` is held to the host sponge by
+  tests/test_torch_csrc_poseidon.py) against the JAX package's
+  ``TraceSponge`` on absorb and squeeze calls at mode switches, with
+  trailing chunks, from a full rate and with 0 permutations, the
+  permutation replaced in both by one stand-in (a rotation of the state's
+  words): each call's permutations, index, mode, state and squeezed
+  values, and ``GhostSponge``'s permutation and launch counts.
 - ``short_challenge_trace`` against ``get_short_challenge`` at all four rings;
   ``GhostSponge`` trajectories against the JAX package's (a sumcheck
   round's schedule against its ``sp_ghost_round``), and its permutation
@@ -136,6 +145,46 @@ def test_trace_sponge_matches_port_host(name):
     fresh = TTranscript(ring)
     tdtr.import_state(ring, fresh, sp.state, sp.index, sp.absorbing)
     assert fresh.snapshot_state() == host.snapshot_state()
+
+
+# (n, absorb): see tests/test_torch_csrc_poseidon.py's CALLS
+SCHEDULE_CALLS = [(67, True), (5, True), (8, True), (21, True), (45, False), (3, False), (30, False), (2, True)]
+
+
+def test_sponge_call_schedule_matches_jax(monkeypatch):
+    name = "goldilocks"
+    ring, tring = get_ring(name), tget_ring(name)
+    perms = []
+    monkeypatch.setattr(jdtr, "permute", lambda r, st: perms.append(1) or jnp.roll(st, 1, axis=0))
+
+    def rot(st):
+        return torch.roll(st, 1, 0)
+
+    rng = np.random.default_rng(3)
+    state = ring.fq.encode(rng.integers(0, 2**63, size=24).astype(object))
+    idx, absorbing = 13, False
+    jsp = jdtr.TraceSponge(ring, jnp.asarray(state), idx, absorbing)
+    ghost = tdtr.GhostSponge(tring, idx, absorbing)
+    tstate, launches = convert.tensor(state, CPU), 0
+    for i, (n, absorb) in enumerate(SCHEDULE_CALLS):
+        switch, before = absorbing != absorb, len(perms)
+        if absorb:
+            vals = ring.fq.encode(rng.integers(0, 2**63, size=n).astype(object))
+            jsp.absorb(jnp.asarray(vals))
+            tstate, _ = tdtr.sponge_call_plain(tring, tstate, convert.tensor(vals, CPU), n, idx, switch, rot)
+            ghost.absorb(n)
+        else:
+            jout = jsp.squeeze(n)
+            tstate, tout = tdtr.sponge_call_plain(tring, tstate, None, n, idx, switch, rot)
+            assert np.array_equal(convert.to_numpy(tout), np.asarray(jout)), f"call {i}: squeezed values"
+            ghost.squeeze(n)
+        nperm, idx = tdtr.call_plan(n, idx, switch, jsp.rate)
+        absorbing = absorb
+        launches += absorb or nperm > 0
+        assert nperm == len(perms) - before, f"call {i}: permutations"
+        assert (idx, absorbing) == (jsp.index, jsp.absorbing) == (ghost.index, ghost.absorbing), f"call {i}"
+        assert np.array_equal(convert.to_numpy(tstate), np.asarray(jsp.state)), f"call {i}: state"
+    assert (ghost.perms, ghost.launches) == (len(perms), launches) == (11, 7)
 
 
 @pytest.mark.parametrize("name", RINGS)

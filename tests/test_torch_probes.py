@@ -115,11 +115,17 @@ def test_bf16_gemm_of_u8_is_exact_at_k128():
 
 
 def test_bitcast_and_merge_are_byte_exact():
+    """Both designs' wrappers (the vector copy and the first design, off the
+    card their plain versions) at the probe shapes and a size with a tail."""
     rng = np.random.default_rng(4)
     x = rng.integers(0, 1 << 32, size=(8, 128), dtype=np.uint64).astype(np.uint32)
-    assert np.array_equal(pp.bitcast_u8(t32(x)).numpy(), x.view(np.uint8).reshape(8, 512))
+    odd = rng.integers(0, 1 << 32, size=(3, 7), dtype=np.uint64).astype(np.uint32)
     y = rng.integers(0, 1 << 32, size=(8, 16, 4), dtype=np.uint64).astype(np.uint32)
-    assert np.array_equal(pp.merge_minor(t32(y)).numpy().view(np.uint32), y.reshape(8, 64))
+    for bitcast, merge in ((pp.bitcast_u8, pp.merge_minor), (pp.bitcast_u8_v1, pp.merge_minor_v1)):
+        assert np.array_equal(bitcast(t32(x)).numpy(), x.view(np.uint8).reshape(8, 512))
+        assert np.array_equal(bitcast(t32(odd)).numpy(), odd.view(np.uint8).reshape(3, 28))
+        assert np.array_equal(merge(t32(y)).numpy().view(np.uint32), y.reshape(8, 64))
+        assert np.array_equal(merge(t32(odd.reshape(3, 7, 1))).numpy().view(np.uint32), odd)
 
 
 def test_gemm_refuses_mixed_types():
