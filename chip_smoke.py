@@ -63,16 +63,20 @@ Phases (any failure raises and the script exits non-zero):
      as given, N-contiguous, and handed column-major); P1 v1 runs the
      mma.sync dot, P1 v2, dot_only, P2 batched and P3 kmajor the Hopper dot,
      P4 and P5 dot_u8 kernel C's Hopper GEMM (``int_gemm_sm90_kernel.cu``,
-     one launch, no clearing of C), P5 dot_u8_via_bf16 the first kernel C;
+     one launch, no clearing of C), P5 dot_u8_via_bf16 kernel C's bf16
+     instance on Hopper (``bf16_gemm_sm90_kernel.cu``, one launch);
      each Hopper kernel of P1 dot_only, P3 and P4 / P5 dot_u8 timed in turns
      with its first design (``plane_dot_mma``, ``int_gemm_mma``), which
      must equal the plain version too, on the device and for the host's
-     time a call (``host_us_in_turns``); P5 dot_u8_via_bf16 beside
-     ``torch.mm`` of the bf16 casts with a float32 ``out_dtype`` where the
-     card's torch takes it and it is exact (``bf16_mm_ms``); P5 bitcast and
-     merge (kernel D's vector copies) equal to their first design
-     (``bitcast_u8_v1``, ``merge_minor_v1``) and timed in turns with it and
-     ``clone()`` over 1000 launches each (``relayout_turns``).
+     time a call (``host_us_in_turns``); P5 dot_u8_via_bf16 (``bf16_case``)
+     equal to the plain version, as is its first design (``bf16_gemm_mma``,
+     ``int_gemm_kernel.cu``), at 128 x 128 x 128, a ragged 72 x 200 x 40
+     and all-255 operands at K 256, and timed in turns with the first
+     design and ``torch.mm`` of the bf16 casts with a float32
+     ``out_dtype`` (exact here; ``bf16_mm_fn``) over 1000 launches each;
+     P5 bitcast and merge (kernel D's vector copies) equal to their first
+     design (``bitcast_u8_v1``, ``merge_minor_v1``) and timed in turns with
+     it and ``clone()`` over 1000 launches each (``relayout_turns``).
 2. For each ring, hold each kernel against its plain PyTorch version on the
    card at the path's shapes: the tensor-core CRT kernel
    (``crt_tc_kernel.cu``) as icrt at N = wit_len (the input witness), crt
@@ -1873,8 +1877,7 @@ def check_odd_batch(device):
     return dict(ring="babybear", kappa=kappa, n=n, Nb=Nb, launches=launches, equal_to_commit_batch_cm=True)
 
 
-def probe_case(label, kernel, fn, plain, flush, n_bytes, ops, peak_ops=PEAK_INT8_OPS_PER_S, library=None,
-               first=None):
+def probe_case(label, kernel, fn, plain, flush, n_bytes, ops, library=None, first=None):
     """One probe: counted run (one launch of ``kernel``), exact against the
     plain version, timed beside its bound and the library call (``library``:
     a function returning ms, or ``int_mm_ms``'s two layouts). ``first``:
@@ -1901,7 +1904,7 @@ def probe_case(label, kernel, fn, plain, flush, n_bytes, ops, peak_ops=PEAK_INT8
         r.update(library_ms=lib["b_row_major_ms"], library_b_col_major_ms=lib["b_col_major_ms"])
     else:
         r["library_ms"] = lib
-    r.update(plain_ms=time_ms(plain, 2, flush), **roofline(n_bytes, ops, peak_ops))
+    r.update(plain_ms=time_ms(plain, 2, flush), **roofline(n_bytes, ops))
     extra = ""
     if ops == 0:
         r["gb_per_s"] = n_bytes / (r["ms"] / 1e3) / 1e9
@@ -1916,39 +1919,75 @@ def probe_case(label, kernel, fn, plain, flush, n_bytes, ops, peak_ops=PEAK_INT8
     return r
 
 
-def relayout_turns(label, fn, first, lib, flush, reps=1000):
-    """P5's one-launch relayouts against their first design and ``clone()``
-    of the same bytes, in turns over ``reps`` launches each (the L2 flushed
-    before each: ``turn_samples``), with the spread of each: the first and
-    third quartiles."""
+def relayout_turns(label, fn, first, lib, flush, reps=1000, lib_key="clone"):
+    """A one-launch probe against its first design and one library call of
+    the same function (P5's relayouts: ``clone()`` of the same bytes), in
+    turns over ``reps`` launches each (the L2 flushed before each:
+    ``turn_samples``), with the spread of each: the first and third
+    quartiles. The library's times are keyed ``lib_key``."""
     t = {}
-    for k, v in turn_samples({"kernel": fn, "first": first, "clone": lib}, reps, flush).items():
+    for k, v in turn_samples({"kernel": fn, "first": first, lib_key: lib}, reps, flush).items():
         q1, med, q3 = statistics.quantiles(v, n=4)
         t[k], t[f"{k}_q1"], t[f"{k}_q3"] = med, q1, q3
     t["reps"] = reps
     log(f"[probe {label}] in turns over {reps} launches each (median [q1, q3]): kernel {t['kernel']:.6f} "
         f"[{t['kernel_q1']:.6f}, {t['kernel_q3']:.6f}] ms, first design {t['first']:.6f} [{t['first_q1']:.6f}, "
-        f"{t['first_q3']:.6f}], clone() {t['clone']:.6f} [{t['clone_q1']:.6f}, {t['clone_q3']:.6f}]")
+        f"{t['first_q3']:.6f}], {lib_key} {t[lib_key]:.6f} [{t[f'{lib_key}_q1']:.6f}, {t[f'{lib_key}_q3']:.6f}]")
     return t
 
 
-def bf16_mm_ms(x, y, want, flush):
+def bf16_mm_fn(x, y, want):
     """P5 dot_u8_via_bf16's library call: ``torch.mm`` of the bf16 casts with
     a float32 ``out_dtype`` (exact: the u8 values and their products' sums
-    are exact in bf16 and float32), timed with the casts outside the timing,
-    where the card's torch takes that argument and the result equals the
-    plain version; else None (a bf16 output rounds and is no yardstick).
-    Returns (ms or None, note)."""
+    are exact in bf16 and float32), the casts made here, outside any
+    timing. Raises where the card's torch does not take that argument or
+    the result differs from the plain version (a bf16 output rounds and is
+    no yardstick)."""
     import torch
 
     xb, yb = x.to(torch.bfloat16), y.to(torch.bfloat16)
-    try:
-        got = torch.mm(xb, yb, out_dtype=torch.float32)
-    except (TypeError, RuntimeError) as e:
-        return None, f"torch.mm takes no out_dtype here ({type(e).__name__}: {str(e)[:120]})"
+    got = torch.mm(xb, yb, out_dtype=torch.float32)
     if got.dtype != torch.float32 or not torch.equal(got, want):
-        return None, "torch.mm(out_dtype=float32) does not equal the plain version"
-    return time_ms(lambda: torch.mm(xb, yb, out_dtype=torch.float32), 50, flush), "torch.mm(bf16, out_dtype=float32)"
+        raise AssertionError("torch.mm(out_dtype=float32) does not equal the plain version")
+    return lambda: torch.mm(xb, yb, out_dtype=torch.float32)
+
+
+def bf16_case(label, u8, flush):
+    """P5 dot_u8_via_bf16 at 128 x 128 x 128: the Hopper kernel counted (one
+    launch of ``bf16_gemm_sm90`` a call) and, with its first design, equal
+    to the plain version there, at a ragged 72 x 200 x 40 and at all-255
+    operands at K 256 (the top of the exact range, sums 16646400); the
+    kernel, the first design and ``torch.mm`` timed in turns over 1000
+    launches each (``relayout_turns``) and for the host's time a call."""
+    import torch
+
+    from latticefold_torch.rings import plane_probes as pp
+
+    full = lambda *shape: torch.full(shape, 255, dtype=torch.uint8, device=flush.device)  # noqa: E731
+    inputs = {"128x128x128": (u8(128, 128), u8(128, 128)), "72x200x40": (u8(72, 200), u8(200, 40)),
+              "128x256x128 all 255": (full(128, 256), full(256, 128))}
+    for name, (x, y) in inputs.items():
+        got, launches = counted(f"{label} {name}", lambda: pp.bf16_gemm(x, y), {"bf16_gemm_sm90": 1})
+        want = pp.bf16_gemm_plain(x, y)
+        max_abs_err(f"{label} {name}", got, want)
+        max_abs_err(f"{label} {name} (first design)", pp.bf16_gemm_mma(x, y), want)
+    x, y = inputs["128x128x128"]
+    fns = {"kernel": lambda: pp.bf16_gemm(x, y), "first": lambda: pp.bf16_gemm_mma(x, y),
+           "torch_mm": bf16_mm_fn(x, y, pp.bf16_gemm_plain(x, y))}
+    for fn in fns.values():
+        fn()
+    t = relayout_turns(label, fns["kernel"], fns["first"], fns["torch_mm"], flush, lib_key="torch_mm")
+    host = host_us_in_turns(fns)
+    r = dict(max_abs_err=0, launches=launches["bf16_gemm_sm90"], exact_at=list(inputs), ms=t["kernel"],
+             first_ms=t["first"], library_ms=t["torch_mm"], faster_than_first=t["kernel"] < t["first"],
+             at_or_below_library=t["kernel"] <= t["torch_mm"], host_us=host["kernel"], first_host_us=host["first"],
+             library_host_us=host["torch_mm"], turns_with_library=t, library_note="torch.mm(bf16, out_dtype=float32)",
+             plain_ms=time_ms(lambda: pp.bf16_gemm_plain(x, y), 2, flush),
+             **roofline(2 * 128 * 128 + 128 * 128 * 4, 2 * 128 ** 3, PEAK_BF16_OPS_PER_S))
+    log(f"[probe {label}] exact at {', '.join(inputs)} (both designs); {r['ms']:.6f} ms (bound {r['bound_ms']:.6f} "
+        f"{r['bound_by']}), first design {r['first_ms']:.6f}, torch.mm {r['library_ms']:.6f}; host us a call "
+        f"{r['host_us']:.2f}, first {r['first_host_us']:.2f}, torch.mm {r['library_host_us']:.2f}")
+    return r
 
 
 def check_probes(device):
@@ -2014,15 +2053,13 @@ def check_probes(device):
         del a, w, at, planes, fake
         torch.cuda.empty_cache()
 
-    def gemm(label, x, y, fn=pp.int_gemm, plain=pp.int_gemm_plain, peak=PEAK_INT8_OPS_PER_S, library=True,
-             kernel="int_gemm_sm90", first=pp.int_gemm_mma):
+    def gemm(label, x, y, library=True):
         (m, k), nn = x.shape, y.shape[1]
         out_bytes = m * nn * 4
         cases[label] = probe_case(
-            label, kernel, lambda: fn(x, y), lambda: plain(x, y), flush,
-            m * k * x.element_size() + k * nn * y.element_size() + out_bytes, 2 * m * nn * k, peak,
-            library=(lambda: int_mm_ms([(x, y)], flush)) if library else None,
-            first=(lambda: first(x, y)) if first else None)
+            label, "int_gemm_sm90", lambda: pp.int_gemm(x, y), lambda: pp.int_gemm_plain(x, y), flush,
+            m * k * x.element_size() + k * nn * y.element_size() + out_bytes, 2 * m * nn * k,
+            library=(lambda: int_mm_ms([(x, y)], flush)) if library else None, first=lambda: pp.int_gemm_mma(x, y))
 
     gemm("P4 i8exact s8 256x2048x256", i8(256, 2048), i8(2048, 256))
     gemm("P4 i8exact u8 256x2048x256", u8(256, 2048), u8(2048, 256), library=False)
@@ -2030,19 +2067,7 @@ def check_probes(device):
     for nn in (384, 1536):
         gemm(f"P4 dotspeed s8 1728x32768x{nn}", i8(1728, 1 << 15), i8(1 << 15, nn))
     gemm("P5 dot_u8 128x256x128", u8(128, 256), u8(256, 128), library=False)
-    x, y = u8(128, 128), u8(128, 128)
-    lib_note = {}
-
-    def bf16_lib():
-        ms, lib_note["note"] = bf16_mm_ms(x, y, pp.bf16_gemm_plain(x, y), flush)
-        return ms
-
-    gemm("P5 dot_u8_via_bf16 128x128x128", x, y, fn=pp.bf16_gemm, plain=pp.bf16_gemm_plain,
-         peak=PEAK_BF16_OPS_PER_S, library=False, kernel="int_gemm", first=None)
-    cases["P5 dot_u8_via_bf16 128x128x128"]["library_ms"] = bf16_lib()
-    cases["P5 dot_u8_via_bf16 128x128x128"]["library_note"] = lib_note["note"]
-    log(f"[probe P5 dot_u8_via_bf16 128x128x128] library: {lib_note['note']}, "
-        f"{cases['P5 dot_u8_via_bf16 128x128x128']['library_ms']} ms")
+    cases["P5 dot_u8_via_bf16 128x128x128"] = bf16_case("P5 dot_u8_via_bf16 128x128x128", u8, flush)
     xb = u32(8, 128)
     cases["P5 bitcast 8x128"] = probe_case(
         "P5 bitcast 8x128", "bitcast", lambda: pp.bitcast_u8(xb), lambda: xb.view(torch.uint8), flush,
@@ -2063,17 +2088,19 @@ def check_probes(device):
     for label, r in cases.items():
         key = PROBE_KERNEL[label.split()[0] + " " + label.split()[1]]
         extra = {k: r[k] for k in ("first_ms", "faster_than_first", "host_us", "first_host_us",
-                                   "library_b_col_major_ms", "turns_with_clone", "library_note") if k in r}
+                                   "library_b_col_major_ms", "turns_with_clone", "library_note", "exact_at",
+                                   "at_or_below_library", "library_host_us", "turns_with_library") if k in r}
         entries.append(dict(KERNEL_INFO[key], name=f"{KERNEL_INFO[key]['name']}[{label}]",
                             replaces=PROBE_REPLACES[label.split()[0] + " " + label.split()[1]],
                             launches=r["launches"], max_abs_err=r["max_abs_err"], ms=r["ms"],
                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                             library_ms=r["library_ms"], shape=label, **extra))
-        if "turns_with_clone" in r:  # the relayouts' first design, off every path
-            first = key + "_v1"
+        turns = r.get("turns_with_clone") or r.get("turns_with_library")
+        if turns:  # the first design, timed in the same turns, off every path
+            first = PROBE_FIRST[label.split()[0] + " " + label.split()[1]]
             entries.append(dict(KERNEL_INFO[first], name=f"{KERNEL_INFO[first]['name']}[{label}]",
                                 replaces=PROBE_REPLACES[label.split()[0] + " " + label.split()[1]], launches=0,
-                                max_abs_err=r["max_abs_err"], ms=r["turns_with_clone"]["first"],
+                                max_abs_err=r["max_abs_err"], ms=turns["first"],
                                 plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                                 library_ms=r["library_ms"], shape=label, on_main_path=False))
     del flush
@@ -2118,6 +2145,8 @@ KERNEL_INFO = {
     "int_gemm": dict(name="int_gemm_kernel", route="cuda", source="latticefold_torch/csrc/int_gemm_kernel.cu"),
     "int_gemm_sm90": dict(name="int_gemm_sm90_kernel", route="cuda",
                           source="latticefold_torch/csrc/int_gemm_sm90_kernel.cu"),
+    "bf16_gemm_sm90": dict(name="bf16_gemm_sm90_kernel", route="cuda",
+                           source="latticefold_torch/csrc/bf16_gemm_sm90_kernel.cu"),
     "dma_checksum": dict(name="dma_checksum_kernel", route="cuda",
                          source="latticefold_torch/csrc/probe_kernels.cu"),
     "bitcast": dict(name="bitcast_u8_vec_kernel", route="cuda", source="latticefold_torch/csrc/probe_kernels.cu"),
@@ -2135,8 +2164,10 @@ PROBE_KERNEL = {
     "P1 v1": "plane_dot", "P1 v2": "plane_dot_sm90", "P1 planes_only": "plane_dot", "P1 dot_only": "plane_dot_sm90",
     "P2 batched": "plane_dot_sm90", "P2 dma": "dma_checksum", "P3 kmajor": "plane_dot_sm90", "P3 dma": "dma_checksum",
     "P4 i8exact": "int_gemm_sm90", "P4 dotspeed": "int_gemm_sm90", "P5 dot_u8": "int_gemm_sm90",
-    "P5 dot_u8_via_bf16": "int_gemm", "P5 bitcast": "bitcast", "P5 merge": "merge",
+    "P5 dot_u8_via_bf16": "bf16_gemm_sm90", "P5 bitcast": "bitcast", "P5 merge": "merge",
 }
+# probe -> its kernel's first design, timed in the same turns and listed off every path
+PROBE_FIRST = {"P5 dot_u8_via_bf16": "int_gemm", "P5 bitcast": "bitcast_v1", "P5 merge": "merge_v1"}
 PROBE_REPLACES = {
     "P1 v1": "benches/exp_r4_kvar.py:60",
     "P1 v2": "benches/exp_r4_kvar.py:74",

@@ -1,5 +1,5 @@
-// Kernel C: a plain GEMM on the tensor cores, C = A B with A [M, K] and
-// B [K, N] row-major, in three instances:
+// Kernel C's first design: a plain GEMM on the tensor cores, C = A B with
+// A [M, K] and B [K, N] row-major, in three instances:
 //   0: int8  x int8  -> int32  (mma.sync m16n8k32 .s8.s8)
 //   1: uint8 x uint8 -> int32  (mma.sync m16n8k32 .u8.u8)
 //   2: uint8 values as bf16 -> float32 (mma.sync m16n8k16 .bf16, f32 sums)
@@ -8,7 +8,10 @@
 // on: benches/exp_r4_probe.py `probe_i8exact` (i8 and u8 GEMMs, 256 x 2048
 // x 256, and 8 x 2^15 x 128), `probe_dotspeed`'s Pallas grid dot (i8,
 // 1728 x 2^15 x 384 and 1536) and benches/exp_pallas_probe.py's `dot_u8`
-// (128 x 256 x 128) and `dot_u8_via_bf16` (128 x 128 x 128).
+// (128 x 256 x 128) and `dot_u8_via_bf16` (128 x 128 x 128). Since its
+// Hopper redesigns (int_gemm_sm90_kernel.cu for s8 and u8,
+// bf16_gemm_sm90_kernel.cu for bf16) it is their in-call baseline
+// (plane_probes.int_gemm_mma, bf16_gemm_mma), launched by no path.
 //
 // What bounds it: 2 M N K operations on M K + K N bytes, 2 M N / (M + N)
 // operations per byte: about 630 and 1630 at the dot-speed shapes (1728 x

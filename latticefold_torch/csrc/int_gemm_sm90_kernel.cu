@@ -6,8 +6,9 @@
 // on: benches/exp_r4_probe.py `probe_i8exact` (i8 and u8 GEMMs, 256 x 2048
 // x 256, and 8 x 2^15 x 128), `probe_dotspeed`'s Pallas grid dot (i8,
 // 1728 x 2^15 x 384 and 1536) and benches/exp_pallas_probe.py's `dot_u8`
-// (128 x 256 x 128). (`dot_u8_via_bf16` stays on the first design,
-// int_gemm_kernel.cu, which is also this kernel's in-call baseline.)
+// (128 x 256 x 128). (`dot_u8_via_bf16` has a Hopper kernel of its own,
+// bf16_gemm_sm90_kernel.cu; the first design of both, int_gemm_kernel.cu,
+// is their in-call baseline.)
 //
 // What bounds it: 2 M N K operations on M K + K N bytes, 2 M N / (M + N)
 // operations per byte: about 630 and 1630 at the dot-speed shapes (1728 x

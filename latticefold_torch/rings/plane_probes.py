@@ -17,7 +17,7 @@ here:
                                                         (int_gemm_mma: the first design)
   P5 exp_pallas_probe.py:18 main     k_bitcast          bitcast_u8
                                      k_dot_u8           int_gemm (uint8)
-                                     k_dot_bf           bf16_gemm
+                                     k_dot_bf           bf16_gemm (bf16_gemm_mma: the first design)
                                      k_merge            merge_minor
 
 (``plane_dot`` is kernel A of ``rings/plane_commit.py``: its full and
@@ -25,10 +25,11 @@ dot-only modes and its K-major lhs on the Hopper dot,
 ``csrc/plane_dot_sm90_kernel.cu``, ``planes_only`` and ``plane_dot_mma``,
 the baseline, on the mma.sync kernel.) On CUDA tensors each function
 launches its kernel: ``int_gemm`` kernel C's Hopper GEMM
-(``csrc/int_gemm_sm90_kernel.cu``), ``bf16_gemm`` and ``int_gemm_mma``
-its first design (``csrc/int_gemm_kernel.cu``), the rest
-``csrc/probe_kernels.cu``; on CPU tensors it runs the plain version beside
-it. The benches' loop-and-perturb timing harness is not ported: the card
+(``csrc/int_gemm_sm90_kernel.cu``), ``bf16_gemm`` its bf16 instance on
+Hopper (``csrc/bf16_gemm_sm90_kernel.cu``), ``int_gemm_mma`` and
+``bf16_gemm_mma`` their first design (``csrc/int_gemm_kernel.cu``), the
+rest ``csrc/probe_kernels.cu``; on CPU tensors it runs the plain version
+beside it. The benches' loop-and-perturb timing harness is not ported: the card
 is timed with CUDA events (``chip_smoke.py``). u32 words are held in int32
 tensors (their bit patterns) here.
 """
@@ -43,8 +44,8 @@ from .. import cuda
 from .. import modops as mo
 from .plane_commit import plane_dot, plane_dot_mma, split_k
 
-__all__ = ["plane_dot", "plane_dot_mma", "dma_checksum", "int_gemm", "int_gemm_mma", "bf16_gemm", "bitcast_u8",
-           "merge_minor"]
+__all__ = ["plane_dot", "plane_dot_mma", "dma_checksum", "int_gemm", "int_gemm_mma", "bf16_gemm", "bf16_gemm_mma",
+           "bitcast_u8", "merge_minor"]
 
 _GEMM_TYPES = {torch.int8: 0, torch.uint8: 1}
 _BLOCKS_PER_SM = 4  # DMA checksum blocks per SM
@@ -54,6 +55,9 @@ _GEMM_COLS = 128  # the columns of B a block of the Hopper GEMM owns (csrc: 4 Cf
 _GEMM_MIN_SPLIT_K = 256  # the least K a split of the Hopper GEMM takes
 _GEMM_MAX_SPLIT = 64  # the most splits: the last split to arrive adds the others
 _GEMM_CONSUMERS = 256  # consumer threads a block (csrc: GEMM_THREADS)
+BF16_K_MAX = 258  # the largest K whose float32 sums of u8 products are exact: 255^2 K < 2^24
+_BF16_ROUTE = 0  # the bf16 instance's route: the 16-bit wgmma (csrc/bf16_gemm_sm90.cuh ROUTE_BF16)
+_BF16_BN = 32  # the columns of C a block of the bf16 instance owns (16 or 32: 32 measured faster)
 
 
 @functools.lru_cache(maxsize=None)
@@ -109,8 +113,9 @@ def int_gemm_plain(a, b):
 
 
 def bf16_gemm_plain(a, b):
-    """uint8 a [M, K] @ b [K, N] -> float32 sums of the values, exact while
-    they stay below 2^24 (K 255^2 < 2^24 for K <= 256)."""
+    """uint8 a [M, K] @ b [K, N] -> the exact integer sums rounded once to
+    float32 (exact themselves while below 2^24: 255^2 K < 2^24 for K <=
+    BF16_K_MAX)."""
     return torch.matmul(a.double(), b.double()).to(torch.float32)
 
 
@@ -249,12 +254,49 @@ def int_gemm_mma(a, b):
     return _gemm_kernel(a, b, _GEMM_TYPES[a.dtype], torch.int32)
 
 
-def bf16_gemm(a, b):
-    """Kernel C, instance bf16: uint8 a [M, K] @ b [K, N], the values taken
-    as bf16, summed in float32 -> float32 [M, N], on the first design
-    (``int_gemm_kernel.cu``)."""
+def _bf16_operands(a, b):
     if a.dtype != torch.uint8 or b.dtype != torch.uint8:
         raise ValueError("bf16_gemm: uint8 operands expected")
+    K = _gemm_shape(a, b)[1]
+    if K > BF16_K_MAX:
+        raise ValueError(f"bf16_gemm: K = {K} > {BF16_K_MAX}: float32 sums of u8 products are exact only "
+                         f"below 2^24")
+
+
+def _bf16_sm90(a, b, route: int = _BF16_ROUTE, bn: int = _BF16_BN):
+    """The bf16 instance on Hopper (``bf16_gemm_sm90_kernel.cu``), one
+    launch: ``route`` 0 the 16-bit wgmma, 1 the u8 integer MMA (timed
+    against it by ``tools/exp_bf16_gemm_routes.py``), ``bn`` 16 or 32."""
+    dev = a.device
+    M, K, N = _gemm_shape(a, b)
+    if a.stride(1) != 1 or b.stride(1) != 1:
+        raise ValueError("bf16_gemm: rows of contiguous bytes expected (stride 1 along K and N)")
+    out = torch.empty((M, N), dtype=torch.float32, device=dev)
+    code = cuda.kernel("bf16_gemm_sm90")(
+        a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0), out.data_ptr(), M, N, K, route, bn,
+        cuda.stream_handle(dev),
+    )
+    cuda.check(code, "bf16_gemm_sm90")
+    cuda.LAUNCHES["bf16_gemm_sm90"] += 1
+    return out
+
+
+def bf16_gemm(a, b):
+    """Kernel C, instance bf16: uint8 a [M, K] @ b [K, N], the values taken
+    as bf16, summed in float32 -> float32 [M, N], equal to
+    ``bf16_gemm_plain``; K <= BF16_K_MAX (else ValueError, on every
+    device). On the card the Hopper kernel (``bf16_gemm_sm90_kernel.cu``)."""
+    _bf16_operands(a, b)
+    if a.device.type == "cpu":
+        return bf16_gemm_plain(a, b)
+    return _bf16_sm90(a, b)
+
+
+def bf16_gemm_mma(a, b):
+    """``bf16_gemm``'s function on kernel C's first design
+    (``int_gemm_kernel.cu``, mma.sync): the Hopper kernel's in-call
+    baseline, launched by no path."""
+    _bf16_operands(a, b)
     if a.device.type == "cpu":
         return bf16_gemm_plain(a, b)
     return _gemm_kernel(a, b, 2, torch.float32)

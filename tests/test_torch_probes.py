@@ -7,8 +7,11 @@ in numpy. The kernels themselves run only on the card, where chip_smoke.py
 holds them against these plain versions at the TPU shapes.
 
 Tolerance: exact equality (0) -- every value is an integer (the bf16 probe's
-float32 sums are integers below 2^24)."""
+float32 sums are integers below 2^24). The bf16 probe is also held against
+its TPU kernel's function in JAX (``k_dot_bf``'s dot, restated)."""
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -112,6 +115,43 @@ def test_bf16_gemm_of_u8_is_exact_at_k128():
     got = pp.bf16_gemm(torch.from_numpy(a), torch.from_numpy(b))
     assert got.dtype == torch.float32
     assert np.array_equal(got.numpy().astype(np.int64), a.astype(np.int64) @ b.astype(np.int64))
+
+
+def k_dot_bf(a, b):
+    """The body of ``k_dot_bf`` (benches/exp_pallas_probe.py:70-88), restated:
+    the u8 blocks cast to bf16, one dot with float32 accumulation."""
+    return jax.lax.dot_general(jnp.asarray(a).astype(jnp.bfloat16), jnp.asarray(b).astype(jnp.bfloat16),
+                               (((1,), (0,)), ((), ())), preferred_element_type=jnp.float32)
+
+
+@pytest.mark.parametrize("m,k,n,full", [
+    (128, 128, 128, False),  # dot_u8_via_bf16's shape
+    (72, 200, 40, False),  # ragged: rows of neither operand a 16-byte multiple
+    (128, 256, 128, True),  # all 255 at K 256: sums 16646400, near 2^24
+])
+def test_bf16_gemm_matches_jax_dot_general(m, k, n, full):
+    """``bf16_gemm`` and its first design's wrapper (off the card both run
+    ``bf16_gemm_plain``) against the TPU probe's function in JAX, float32
+    bits."""
+    rng = np.random.default_rng(m + k + n)
+    a = np.full((m, k), 255, np.uint8) if full else rng.integers(0, 256, size=(m, k)).astype(np.uint8)
+    b = np.full((k, n), 255, np.uint8) if full else rng.integers(0, 256, size=(k, n)).astype(np.uint8)
+    want = np.asarray(k_dot_bf(a, b))
+    assert want.dtype == np.float32
+    for fn in (pp.bf16_gemm, pp.bf16_gemm_mma):
+        got = fn(torch.from_numpy(a), torch.from_numpy(b))
+        assert got.dtype == torch.float32 and np.array_equal(got.numpy().view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("fn", [pp.bf16_gemm, pp.bf16_gemm_mma], ids=["bf16_gemm", "bf16_gemm_mma"])
+def test_bf16_gemm_refuses_k_past_exact_float32(fn):
+    """Above K 258 a float32 sum of u8 products can pass 2^24 and round: the
+    wrappers refuse it, here as on the card."""
+    k = pp.BF16_K_MAX
+    ok = fn(torch.full((2, k), 255, dtype=torch.uint8), torch.full((k, 2), 255, dtype=torch.uint8))
+    assert int(ok[0, 0]) == 255 * 255 * k < 1 << 24
+    with pytest.raises(ValueError, match="exact"):
+        fn(torch.zeros((2, k + 1), dtype=torch.uint8), torch.zeros((k + 1, 2), dtype=torch.uint8))
 
 
 def test_bitcast_and_merge_are_byte_exact():
