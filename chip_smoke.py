@@ -76,7 +76,7 @@ Phases (any failure raises and the script exits non-zero):
      ``out_dtype`` (exact here; ``bf16_mm_fn``) over 1000 launches each;
      P5 bitcast and merge (kernel D's vector copies) equal to their first
      design (``bitcast_u8_v1``, ``merge_minor_v1``) and timed in turns with
-     it and ``clone()`` over 1000 launches each (``relayout_turns``).
+     it and ``clone()`` over 1000 launches each (``probe_turns``).
 2. For each ring, hold each kernel against its plain PyTorch version on the
    card at the path's shapes: the tensor-core CRT kernel
    (``crt_tc_kernel.cu``) as icrt at N = wit_len (the input witness), crt
@@ -1877,14 +1877,19 @@ def check_odd_batch(device):
     return dict(ring="babybear", kappa=kappa, n=n, Nb=Nb, launches=launches, equal_to_commit_batch_cm=True)
 
 
-def probe_case(label, kernel, fn, plain, flush, n_bytes, ops, library=None, first=None):
+def probe_case(label, kernel, fn, plain, flush, n_bytes, ops, library=None, first=None, library_call=None,
+               peak_ops=PEAK_INT8_OPS_PER_S):
     """One probe: counted run (one launch of ``kernel``), exact against the
     plain version, timed beside its bound and the library call (``library``:
     a function returning ms, or ``int_mm_ms``'s two layouts). ``first``:
     the same function on the kernel's first design, held against the plain
     version too (uncounted) and timed in turns with the kernel, 50 runs
     each (the small GEMMs sit near the launch floor, where 20 runs left
-    10 % between calls)."""
+    10 % between calls). ``library_call`` (with ``first``): one library call
+    of the same function; the kernel, the first design and it are then
+    timed in turns over 1000 launches each instead (``probe_turns``: the
+    medians are the record's times, the quartiles under ``turns``), for the
+    probes whose gaps are a few us."""
     got, launches = counted(label, fn, {kernel: 1})
     want = plain()
     err = max_abs_err(label, got, want)
@@ -1894,17 +1899,25 @@ def probe_case(label, kernel, fn, plain, flush, n_bytes, ops, library=None, firs
         r["ms"] = time_ms(fn, 20, flush)
     else:
         max_abs_err(f"{label} (first design)", first(), want)
-        turns = time_in_turns({"new": fn, "first": first}, 50, flush)
-        host = host_us_in_turns({"new": fn, "first": first})
-        r.update(ms=turns["new"], first_ms=turns["first"], faster_than_first=turns["new"] < turns["first"],
-                 host_us=host["new"], first_host_us=host["first"])
+        fns = {"kernel": fn, "first": first}
+        if library_call is None:
+            t = time_in_turns(fns, 50, flush)
+        else:
+            fns["library"] = library_call
+            r["turns"] = t = probe_turns(label, fns, flush)
+        host = host_us_in_turns(fns)
+        r.update(ms=t["kernel"], first_ms=t["first"], faster_than_first=t["kernel"] < t["first"],
+                 host_us=host["kernel"], first_host_us=host["first"])
+        if library_call is not None:
+            r.update(library_ms=t["library"], library_host_us=host["library"])
     del want
-    lib = library() if library else None
-    if isinstance(lib, dict):
-        r.update(library_ms=lib["b_row_major_ms"], library_b_col_major_ms=lib["b_col_major_ms"])
-    else:
-        r["library_ms"] = lib
-    r.update(plain_ms=time_ms(plain, 2, flush), **roofline(n_bytes, ops))
+    if library_call is None:
+        lib = library() if library else None
+        if isinstance(lib, dict):
+            r.update(library_ms=lib["b_row_major_ms"], library_b_col_major_ms=lib["b_col_major_ms"])
+        else:
+            r["library_ms"] = lib
+    r.update(plain_ms=time_ms(plain, 2, flush), **roofline(n_bytes, ops, peak_ops))
     extra = ""
     if ops == 0:
         r["gb_per_s"] = n_bytes / (r["ms"] / 1e3) / 1e9
@@ -1912,6 +1925,8 @@ def probe_case(label, kernel, fn, plain, flush, n_bytes, ops, library=None, firs
     if first is not None:
         extra += (f"; first design {r['first_ms']:.4f} ms in turns; host us a call {r['host_us']:.2f}, first "
                   f"design {r['first_host_us']:.2f}")
+    if "library_host_us" in r:
+        extra += f", library {r['library_host_us']:.2f}"
     if "library_b_col_major_ms" in r:
         extra += f"; _int_mm B column-major {r['library_b_col_major_ms']}"
     log(f"[probe {label}] {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} {r['bound_by']}{extra}), plain "
@@ -1919,20 +1934,18 @@ def probe_case(label, kernel, fn, plain, flush, n_bytes, ops, library=None, firs
     return r
 
 
-def relayout_turns(label, fn, first, lib, flush, reps=1000, lib_key="clone"):
-    """A one-launch probe against its first design and one library call of
-    the same function (P5's relayouts: ``clone()`` of the same bytes), in
-    turns over ``reps`` launches each (the L2 flushed before each:
-    ``turn_samples``), with the spread of each: the first and third
-    quartiles. The library's times are keyed ``lib_key``."""
+def probe_turns(label, fns: dict, flush, reps=1000):
+    """A one-launch probe (key ``kernel``) against its first design and one
+    library call of the same function, in turns over ``reps`` launches each
+    (the L2 flushed before each: ``turn_samples``), with the spread of each:
+    the first and third quartiles."""
     t = {}
-    for k, v in turn_samples({"kernel": fn, "first": first, lib_key: lib}, reps, flush).items():
+    for k, v in turn_samples(fns, reps, flush).items():
         q1, med, q3 = statistics.quantiles(v, n=4)
         t[k], t[f"{k}_q1"], t[f"{k}_q3"] = med, q1, q3
     t["reps"] = reps
-    log(f"[probe {label}] in turns over {reps} launches each (median [q1, q3]): kernel {t['kernel']:.6f} "
-        f"[{t['kernel_q1']:.6f}, {t['kernel_q3']:.6f}] ms, first design {t['first']:.6f} [{t['first_q1']:.6f}, "
-        f"{t['first_q3']:.6f}], {lib_key} {t[lib_key]:.6f} [{t[f'{lib_key}_q1']:.6f}, {t[f'{lib_key}_q3']:.6f}]")
+    log(f"[probe {label}] in turns over {reps} launches each (median [q1, q3]): "
+        + ", ".join(f"{k} {t[k]:.6f} [{t[f'{k}_q1']:.6f}, {t[f'{k}_q3']:.6f}] ms" for k in fns))
     return t
 
 
@@ -1953,40 +1966,29 @@ def bf16_mm_fn(x, y, want):
 
 
 def bf16_case(label, u8, flush):
-    """P5 dot_u8_via_bf16 at 128 x 128 x 128: the Hopper kernel counted (one
-    launch of ``bf16_gemm_sm90`` a call) and, with its first design, equal
-    to the plain version there, at a ragged 72 x 200 x 40 and at all-255
-    operands at K 256 (the top of the exact range, sums 16646400); the
-    kernel, the first design and ``torch.mm`` timed in turns over 1000
-    launches each (``relayout_turns``) and for the host's time a call."""
+    """P5 dot_u8_via_bf16: the Hopper kernel counted (one launch of
+    ``bf16_gemm_sm90`` a call) and, with its first design, equal to the
+    plain version at a ragged 72 x 200 x 40 and at all-255 operands at K
+    256 (the top of the exact range, sums 16646400), then ``probe_case`` at
+    128 x 128 x 128 with ``torch.mm`` of the bf16 casts as its library
+    call."""
     import torch
 
     from latticefold_torch.rings import plane_probes as pp
 
     full = lambda *shape: torch.full(shape, 255, dtype=torch.uint8, device=flush.device)  # noqa: E731
-    inputs = {"128x128x128": (u8(128, 128), u8(128, 128)), "72x200x40": (u8(72, 200), u8(200, 40)),
-              "128x256x128 all 255": (full(128, 256), full(256, 128))}
-    for name, (x, y) in inputs.items():
-        got, launches = counted(f"{label} {name}", lambda: pp.bf16_gemm(x, y), {"bf16_gemm_sm90": 1})
+    for name, (x, y) in {"72x200x40": (u8(72, 200), u8(200, 40)),
+                         "128x256x128 all 255": (full(128, 256), full(256, 128))}.items():
+        got, _ = counted(f"{label} {name}", lambda: pp.bf16_gemm(x, y), {"bf16_gemm_sm90": 1})
         want = pp.bf16_gemm_plain(x, y)
         max_abs_err(f"{label} {name}", got, want)
         max_abs_err(f"{label} {name} (first design)", pp.bf16_gemm_mma(x, y), want)
-    x, y = inputs["128x128x128"]
-    fns = {"kernel": lambda: pp.bf16_gemm(x, y), "first": lambda: pp.bf16_gemm_mma(x, y),
-           "torch_mm": bf16_mm_fn(x, y, pp.bf16_gemm_plain(x, y))}
-    for fn in fns.values():
-        fn()
-    t = relayout_turns(label, fns["kernel"], fns["first"], fns["torch_mm"], flush, lib_key="torch_mm")
-    host = host_us_in_turns(fns)
-    r = dict(max_abs_err=0, launches=launches["bf16_gemm_sm90"], exact_at=list(inputs), ms=t["kernel"],
-             first_ms=t["first"], library_ms=t["torch_mm"], faster_than_first=t["kernel"] < t["first"],
-             at_or_below_library=t["kernel"] <= t["torch_mm"], host_us=host["kernel"], first_host_us=host["first"],
-             library_host_us=host["torch_mm"], turns_with_library=t, library_note="torch.mm(bf16, out_dtype=float32)",
-             plain_ms=time_ms(lambda: pp.bf16_gemm_plain(x, y), 2, flush),
-             **roofline(2 * 128 * 128 + 128 * 128 * 4, 2 * 128 ** 3, PEAK_BF16_OPS_PER_S))
-    log(f"[probe {label}] exact at {', '.join(inputs)} (both designs); {r['ms']:.6f} ms (bound {r['bound_ms']:.6f} "
-        f"{r['bound_by']}), first design {r['first_ms']:.6f}, torch.mm {r['library_ms']:.6f}; host us a call "
-        f"{r['host_us']:.2f}, first {r['first_host_us']:.2f}, torch.mm {r['library_host_us']:.2f}")
+    x, y = u8(128, 128), u8(128, 128)
+    r = probe_case(label, "bf16_gemm_sm90", lambda: pp.bf16_gemm(x, y), lambda: pp.bf16_gemm_plain(x, y), flush,
+                   2 * 128 * 128 + 128 * 128 * 4, 2 * 128**3, first=lambda: pp.bf16_gemm_mma(x, y),
+                   library_call=bf16_mm_fn(x, y, pp.bf16_gemm_plain(x, y)), peak_ops=PEAK_BF16_OPS_PER_S)
+    r.update(exact_at=["128x128x128", "72x200x40", "128x256x128 all 255"], library_note="torch.mm(bf16, "
+             "out_dtype=float32)", at_or_below_library=r["ms"] <= r["library_ms"])
     return r
 
 
@@ -2071,36 +2073,27 @@ def check_probes(device):
     xb = u32(8, 128)
     cases["P5 bitcast 8x128"] = probe_case(
         "P5 bitcast 8x128", "bitcast", lambda: pp.bitcast_u8(xb), lambda: xb.view(torch.uint8), flush,
-        2 * xb.numel() * 4, 0, library=lambda: time_ms(lambda: xb.view(torch.uint8).clone(), 20, flush),
-        first=lambda: pp.bitcast_u8_v1(xb))
-    cases["P5 bitcast 8x128"]["turns_with_clone"] = relayout_turns(
-        "P5 bitcast 8x128", lambda: pp.bitcast_u8(xb), lambda: pp.bitcast_u8_v1(xb),
-        lambda: xb.view(torch.uint8).clone(), flush)
+        2 * xb.numel() * 4, 0, first=lambda: pp.bitcast_u8_v1(xb), library_call=lambda: xb.view(torch.uint8).clone())
     ym = u32(8, 16, 4)
     cases["P5 merge 8x16x4"] = probe_case(
         "P5 merge 8x16x4", "merge", lambda: pp.merge_minor(ym), lambda: ym.reshape(8, 64), flush,
-        2 * ym.numel() * 4, 0, library=lambda: time_ms(lambda: ym.reshape(8, 64).clone(), 20, flush),
-        first=lambda: pp.merge_minor_v1(ym))
-    cases["P5 merge 8x16x4"]["turns_with_clone"] = relayout_turns(
-        "P5 merge 8x16x4", lambda: pp.merge_minor(ym), lambda: pp.merge_minor_v1(ym),
-        lambda: ym.reshape(8, 64).clone(), flush)
+        2 * ym.numel() * 4, 0, first=lambda: pp.merge_minor_v1(ym), library_call=lambda: ym.reshape(8, 64).clone())
     entries = []
     for label, r in cases.items():
         key = PROBE_KERNEL[label.split()[0] + " " + label.split()[1]]
-        extra = {k: r[k] for k in ("first_ms", "faster_than_first", "host_us", "first_host_us",
-                                   "library_b_col_major_ms", "turns_with_clone", "library_note", "exact_at",
-                                   "at_or_below_library", "library_host_us", "turns_with_library") if k in r}
+        extra = {k: r[k] for k in ("first_ms", "faster_than_first", "host_us", "first_host_us", "library_host_us",
+                                   "library_b_col_major_ms", "turns", "library_note", "exact_at",
+                                   "at_or_below_library") if k in r}
         entries.append(dict(KERNEL_INFO[key], name=f"{KERNEL_INFO[key]['name']}[{label}]",
                             replaces=PROBE_REPLACES[label.split()[0] + " " + label.split()[1]],
                             launches=r["launches"], max_abs_err=r["max_abs_err"], ms=r["ms"],
                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                             library_ms=r["library_ms"], shape=label, **extra))
-        turns = r.get("turns_with_clone") or r.get("turns_with_library")
-        if turns:  # the first design, timed in the same turns, off every path
+        if "turns" in r:  # the first design, timed in the same turns, off every path
             first = PROBE_FIRST[label.split()[0] + " " + label.split()[1]]
             entries.append(dict(KERNEL_INFO[first], name=f"{KERNEL_INFO[first]['name']}[{label}]",
                                 replaces=PROBE_REPLACES[label.split()[0] + " " + label.split()[1]], launches=0,
-                                max_abs_err=r["max_abs_err"], ms=turns["first"],
+                                max_abs_err=r["max_abs_err"], ms=r["turns"]["first"],
                                 plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                                 library_ms=r["library_ms"], shape=label, on_main_path=False))
     del flush

@@ -2,8 +2,8 @@
 // (bf16_gemm_sm90_kernel.cu): C[M, N] = A[M, K] B[K, N], uint8 A and B
 // (row-major) taken as bf16 values, float32 sums, float32 C (row-major).
 //
-// A block owns BM = 64 rows of C (one warpgroup's wgmma M) and BN columns
-// (16 or 32), and the whole K slab: K up to 3 KS (KS = 128), in SS = 1 .. 3
+// A block owns BM = 64 rows of C (one warpgroup's wgmma M) and BN = 32
+// columns, and the whole K slab: K up to 3 KS (KS = 128), in SS = 1 .. 3
 // slab steps of KS k. Every load of the slab is issued before any wait,
 // 16 bytes a load where the rows allow it:
 // - A: thread (warp w, lane 4 g + t) loads bytes 32 t .. 32 t + 31 of each
@@ -16,9 +16,9 @@
 // k of the MMA is a permutation of the physical k, chosen so that a
 // thread's own A bytes are its A fragment.
 //
-// ROUTE_BF16 (the kernel's route): wgmma.m64nBNk16.f32.bf16.bf16, A from
-// registers, B from shared memory MN-major (the 16-bit wgmma transposes B
-// on the way: no byte transpose anywhere).
+// The MMA: wgmma.m64n32k16.f32.bf16.bf16, A from registers, B from shared
+// memory MN-major (the 16-bit wgmma transposes B on the way: no byte
+// transpose anywhere).
 // - The A-from-register layout per warp: reg 0 row g, k 2t and 2t + 1
 //   (the lower k in the low half); reg 1 row g + 8, the same k; regs 2, 3
 //   the same at k + 8. Word s (0 .. 7) of a thread's 32 bytes of a row holds
@@ -35,18 +35,7 @@
 //   stays below 2^24: 255^2 K < 2^24, K <= K_EXACT = 258. The launcher and
 //   the wrapper refuse a larger K.
 //
-// ROUTE_U8 (the other route, kept for tools/exp_bf16_gemm_routes.py):
-// mma.sync.m16n8k32.s32.u8.u8 with int32 sums, converted to float32 once
-// per output (rounded once, as the plain version's float64 sum is: equal up
-// to K = 33025; here K <= 3 KS). The u8 fragments want four consecutive k
-// of one column of B in a register, so B's raw k-rows are staged as loaded
-// and each fragment register gathers one column's bytes from four k-rows
-// (four 32-bit shared loads and three prmt). A-from-register layout: reg 0
-// row g, bytes k 4t .. 4t + 3; reg 1 row g + 8; regs 2, 3 the same at
-// k + 16: word 2 s + h of a thread's 32 bytes (physical k 32 t + 8 s + 4 h
-// + i) is logical k 32 s + 4 t + 16 h + i of 32-deep step s (0 .. 3).
-//
-// Both routes: the accumulators of each 8-column group, registers 4 i + r,
+// The store: the accumulators of each 8-column group, registers 4 i + r,
 // hold row g + 8 (r >> 1), column 8 i + 2 t + (r & 1). Threads t and t ^ 1
 // trade two values each (shuffles), so that each holds four consecutive
 // columns of one row: even t row g, odd t row g + 8, columns 8 i + 4 (t >>
@@ -54,7 +43,7 @@
 //
 // Plain C++ too (as int_gemm_sm90.cuh): tests/test_torch_csrc_gemm_bf16.py
 // runs every block of the grid a thread at a time with g++ against
-// plane_probes.bf16_gemm_plain, both routes.
+// plane_probes.bf16_gemm_plain.
 
 #pragma once
 
@@ -66,17 +55,13 @@
 
 namespace bf16g {
 
-using sm90::gather_bytes;
-
 constexpr int BM = 64;          // rows of C a block: one warpgroup's wgmma M
+constexpr int BN = 32;          // columns of C a block: 8 blocks at 128 x 128
+constexpr int NACC = BN / 2;    // float32 accumulators a thread
 constexpr int THREADS = 128;    // one warpgroup
 constexpr int KS = 128;         // k of a slab step: 32 bytes of a row a thread of a quad
 constexpr int SS_MAX = 3;       // slab steps a block holds
-constexpr int K_EXACT = 258;    // ROUTE_BF16: the largest K whose float32 sums are exact
-enum Route { ROUTE_BF16 = 0, ROUTE_U8 = 1 };
-
-// the largest K a route takes (host code: the launcher, the harness)
-inline int k_max(int route) { return route == ROUTE_BF16 ? K_EXACT : SS_MAX * KS; }
+constexpr int K_EXACT = 258;    // the largest K whose float32 sums are exact
 
 // 16 bytes as four little-endian words
 struct Chunk {
@@ -103,10 +88,6 @@ LF_DEV Chunk load_chunk(const unsigned char* p, long long ld, int r, int R, int 
   for (int i = 0; i < n; ++i) x.w[i >> 2] |= (u32)q[i] << (8 * (i & 3));
   return x;
 }
-
-// --------------------------------------------------------------------------
-// ROUTE_BF16
-// --------------------------------------------------------------------------
 
 // the logical k (within a slab step) of physical k p
 LF_DEV int k_logical(int p) {
@@ -140,27 +121,14 @@ LF_DEV void a_frag(u32 (&a)[4], u32 w0, u32 w1) {
 }
 
 // the bf16 index of (logical k, column n) in the MN-major stage of BN columns
-LF_DEV int b_index(int k, int n, int bn) { return (((k >> 3) * (bn >> 3) + (n >> 3)) << 6) + ((k & 7) << 3) + (n & 7); }
+LF_DEV int b_index(int k, int n) { return (((k >> 3) * (BN >> 3) + (n >> 3)) << 6) + ((k & 7) << 3) + (n & 7); }
 
-// the stage's descriptor fields in bytes: k-step s starts at s * step, the
-// next 8 k-rows lie lbo further (k direction), the next 8 columns sbo
-LF_DEV int desc_step(int bn) { return 2 * (bn >> 3) * 128; }
-LF_DEV int desc_lbo(int bn) { return (bn >> 3) * 128; }
-LF_DEV int desc_sbo() { return 128; }
-
-// --------------------------------------------------------------------------
-// ROUTE_U8
-// --------------------------------------------------------------------------
-
-// B fragment register r of 32-deep step s, 8-column group i, lane 4 g + t,
-// from the raw stage (k-rows of bn bytes, u32 words): column 8 i + g, the
-// four physical k-rows 32 t + 8 s + 4 r .. + 3 of slab step c
-LF_DEV u32 b_frag_u8(const u32* raw, int bn, int c, int s, int i, int r, int lane) {
-  const int n = 8 * i + (lane >> 2), k0 = KS * c + 32 * (lane & 3) + 8 * s + 4 * r;
-  const int wpr = bn >> 2, col = n >> 2;
-  return gather_bytes(raw[k0 * wpr + col], raw[(k0 + 1) * wpr + col], raw[(k0 + 2) * wpr + col],
-                      raw[(k0 + 3) * wpr + col], n & 3);
-}
+// the stage's descriptor fields in bytes: k-step s starts at s DESC_STEP,
+// the next 8 k-rows lie DESC_LBO further (k direction), the next 8 columns
+// DESC_SBO
+constexpr int DESC_LBO = (BN >> 3) * 128;
+constexpr int DESC_STEP = 2 * DESC_LBO;
+constexpr int DESC_SBO = 128;
 
 // --------------------------------------------------------------------------
 // the store

@@ -15,21 +15,16 @@
 // trip to memory for the operands, the MMAs, the stores.
 //
 // What the design does about it (bf16_gemm_sm90.cuh has the block
-// algorithm): one launch (no split K, no memset of C); 64 x BN output tiles
-// (the wrapper's BN 32: 8 blocks at 128 x 128, which the card ran faster
-// than 16 blocks of 64 x 16), so each block's loads are small; every
-// load of a block's whole K slab issued before any wait, 16 bytes a load;
-// no byte transpose: the logical k order of the MMA is a permutation of
-// the physical one, chosen so that the bytes a thread loads of A are its
-// wgmma register fragment (converted to bf16 once), and B's k-rows go to
-// shared memory as bf16, MN-major, which the 16-bit wgmma reads through its
+// algorithm): one launch (no split K, no memset of C); 64 x 32 output tiles
+// (8 blocks at 128 x 128, which the card ran faster than 16 blocks of
+// 64 x 16 and 4 of 64 x 64), so each block's loads are small; every load
+// of a block's whole K slab issued before any wait, 16 bytes a load; no
+// byte transpose: the logical k order of the MMA is a permutation of the
+// physical one, chosen so that the bytes a thread loads of A are its wgmma
+// register fragment (converted to bf16 once), and B's k-rows go to shared
+// memory as bf16, MN-major, which the 16-bit wgmma reads through its
 // transpose bit; float32 sums in the wgmma accumulators; C written with
 // 16-byte stores after one shuffle between neighbouring lanes.
-//
-// ROUTE_U8 (route 1) is the other design weighed for this kernel, the u8
-// integer MMA (mma.sync m16n8k32) with one float32 conversion per output;
-// the wrapper never launches it: tools/exp_bf16_gemm_routes.py times both
-// routes in turns.
 
 #include <cuda_runtime.h>
 
@@ -40,44 +35,17 @@ namespace {
 
 using namespace bf16g;
 
-template <int N>
-struct WgmmaBf16;
-
-// wgmma.mma_async m64nNk16, f32 += bf16 x bf16, A from registers, B from
+// wgmma.mma_async m64n32k16, f32 += bf16 x bf16, A from registers, B from
 // shared memory MN-major (imm-trans-b 1), D += A B
-template <>
-struct WgmmaBf16<16> {
-  static __device__ __forceinline__ void mma(float (&d)[8], const u32 (&a)[4], u64 desc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-        "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-  }
-};
-
-template <>
-struct WgmmaBf16<32> {
-  static __device__ __forceinline__ void mma(float (&d)[16], const u32 (&a)[4], u64 desc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-        "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-  }
-};
-
-__device__ __forceinline__ void mma_u8(int (&d)[4], const u32 (&a)[4], u32 b0, u32 b1) {
+__device__ __forceinline__ void wgmma_bf16(float (&d)[NACC], const u32 (&a)[4], u64 desc) {
   asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
 // the no-swizzle shared-memory descriptor (layout type 0) of an MN-major
@@ -93,14 +61,13 @@ __device__ __forceinline__ void fence_acc(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-template <int ROUTE, int BN, int SS>
+template <int SS>
 __global__ void __launch_bounds__(THREADS)
     bf16_gemm_sm90(const unsigned char* __restrict__ A, long long lda, const unsigned char* __restrict__ B,
                    long long ldb, float* __restrict__ C, int M, int N, int K, bool vec_a, bool vec_b,
                    bool vec_c) {
-  // ROUTE_BF16: SS KS k-rows of BN bf16, MN-major cores; ROUTE_U8: the raw k-rows
-  constexpr int STAGE = ROUTE == ROUTE_BF16 ? SS * KS * BN * 2 : SS * KS * BN;
-  __shared__ __align__(128) unsigned char b_s[STAGE];
+  // SS KS k-rows of BN bf16, MN-major cores
+  __shared__ __align__(128) unsigned short b_s[SS * KS * BN];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int r0 = m0 + 16 * warp + (lane >> 2);
@@ -118,71 +85,39 @@ __global__ void __launch_bounds__(THREADS)
     for (int q = 0; q < BN / 16; ++q) b_raw[c][q] = load_chunk(B, ldb, KS * c + tid, K, n0 + 16 * q, N, vec_b);
   }
 
-  constexpr int NACC = BN / 2;
-  float out[NACC];
-  if constexpr (ROUTE == ROUTE_BF16) {
-    // B's k-rows as bf16 at their logical k
-    unsigned short* bs = reinterpret_cast<unsigned short*>(b_s);
+  // B's k-rows as bf16 at their logical k
 #pragma unroll
-    for (int c = 0; c < SS; ++c) {
-      const int k = KS * c + k_logical(tid);
+  for (int c = 0; c < SS; ++c) {
+    const int k = KS * c + k_logical(tid);
 #pragma unroll
-      for (int q = 0; q < BN / 16; ++q)
+    for (int q = 0; q < BN / 16; ++q)
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const u32 w0 = b_raw[c][q].w[2 * e], w1 = b_raw[c][q].w[2 * e + 1];
-          const uint4 v = make_uint4(bf16x2(w0, 0), bf16x2(w0, 2), bf16x2(w1, 0), bf16x2(w1, 2));
-          *reinterpret_cast<uint4*>(bs + b_index(k, 16 * q + 8 * e, BN)) = v;
-        }
-    }
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    u32 a[SS][8][4];
-#pragma unroll
-    for (int c = 0; c < SS; ++c)
-#pragma unroll
-      for (int s = 0; s < 8; ++s) a_frag(a[c][s], a_raw[c][0][s >> 2].w[s & 3], a_raw[c][1][s >> 2].w[s & 3]);
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < NACC; ++j) out[j] = 0.0f;
-    const u32 base = sm90::smem_u32(b_s);
-    fence_acc(out);
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-#pragma unroll
-    for (int c = 0; c < SS; ++c)
-#pragma unroll
-      for (int s = 0; s < 8; ++s)
-        WgmmaBf16<BN>::mma(out, a[c][s], desc_mn(base + (8 * c + s) * desc_step(BN), desc_lbo(BN), desc_sbo()));
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-    fence_acc(out);
-  } else {
-#pragma unroll
-    for (int c = 0; c < SS; ++c)
-#pragma unroll
-      for (int q = 0; q < BN / 16; ++q) {
-        const Chunk& x = b_raw[c][q];
-        *reinterpret_cast<uint4*>(b_s + (KS * c + tid) * BN + 16 * q) = make_uint4(x.w[0], x.w[1], x.w[2], x.w[3]);
+      for (int e = 0; e < 2; ++e) {
+        const u32 w0 = b_raw[c][q].w[2 * e], w1 = b_raw[c][q].w[2 * e + 1];
+        const uint4 v = make_uint4(bf16x2(w0, 0), bf16x2(w0, 2), bf16x2(w1, 0), bf16x2(w1, 2));
+        *reinterpret_cast<uint4*>(b_s + b_index(k, 16 * q + 8 * e)) = v;
       }
-    __syncthreads();
-    int acc[BN / 8][4];
-#pragma unroll
-    for (int i = 0; i < BN / 8; ++i)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][r] = 0;
-    const u32* raw = reinterpret_cast<const u32*>(b_s);
-#pragma unroll
-    for (int c = 0; c < SS; ++c)
-#pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        const u32 a[4] = {a_raw[c][0][s >> 1].w[2 * (s & 1)], a_raw[c][1][s >> 1].w[2 * (s & 1)],
-                          a_raw[c][0][s >> 1].w[2 * (s & 1) + 1], a_raw[c][1][s >> 1].w[2 * (s & 1) + 1]};
-#pragma unroll
-        for (int i = 0; i < BN / 8; ++i)
-          mma_u8(acc[i], a, b_frag_u8(raw, BN, c, s, i, 0, lane), b_frag_u8(raw, BN, c, s, i, 1, lane));
-      }
-#pragma unroll
-    for (int j = 0; j < NACC; ++j) out[j] = (float)acc[j >> 2][j & 3];
   }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  u32 a[SS][8][4];
+#pragma unroll
+  for (int c = 0; c < SS; ++c)
+#pragma unroll
+    for (int s = 0; s < 8; ++s) a_frag(a[c][s], a_raw[c][0][s >> 2].w[s & 3], a_raw[c][1][s >> 2].w[s & 3]);
+  __syncthreads();
+  float out[NACC];
+#pragma unroll
+  for (int j = 0; j < NACC; ++j) out[j] = 0.0f;
+  const u32 base = sm90::smem_u32(b_s);
+  fence_acc(out);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int c = 0; c < SS; ++c)
+#pragma unroll
+    for (int s = 0; s < 8; ++s) wgmma_bf16(out, a[c][s], desc_mn(base + (8 * c + s) * DESC_STEP, DESC_LBO, DESC_SBO));
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  fence_acc(out);
 
   // trade pairs with lane ^ 1, then one 16-byte store of four columns
   const bool odd = lane & 1;
@@ -208,30 +143,15 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <int ROUTE, int BN>
-int launch(const unsigned char* A, long long lda, const unsigned char* B, long long ldb, float* C, int M, int N,
-           int K, bool va, bool vb, bool vc, cudaStream_t s) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  const int ss = (K + KS - 1) / KS;
-  if (ss == 1) bf16_gemm_sm90<ROUTE, BN, 1><<<grid, THREADS, 0, s>>>(A, lda, B, ldb, C, M, N, K, va, vb, vc);
-  if (ss == 2) bf16_gemm_sm90<ROUTE, BN, 2><<<grid, THREADS, 0, s>>>(A, lda, B, ldb, C, M, N, K, va, vb, vc);
-  if (ss == 3) bf16_gemm_sm90<ROUTE, BN, 3><<<grid, THREADS, 0, s>>>(A, lda, B, ldb, C, M, N, K, va, vb, vc);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
-// route: 0 the bf16 wgmma (K <= 258), 1 the u8 integer MMA (K <= 384).
-// bn: the block's columns, 16 or 32. A's and B's rows may lie at any
-// stride (lda >= K, ldb >= N, in bytes); 16-byte loads where the pointer
-// and stride are multiples of 16. C: [M, N] float32, contiguous. Another
-// route, bn or a K out of range returns cudaErrorInvalidValue and launches
-// nothing.
+// A's and B's rows may lie at any stride (lda >= K, ldb >= N, in bytes);
+// 16-byte loads where the pointer and stride are multiples of 16. C: [M, N]
+// float32, contiguous. An empty shape or K > K_EXACT returns
+// cudaErrorInvalidValue and launches nothing.
 extern "C" int lf_bf16_gemm_sm90(const void* A, long long lda, const void* B, long long ldb, void* C, int M,
-                                 int N, int K, int route, int bn, void* stream) {
-  if (M < 1 || N < 1 || K < 1 || (route != ROUTE_BF16 && route != ROUTE_U8) || K > k_max(route) || lda < K ||
-      ldb < N)
-    return (int)cudaErrorInvalidValue;
+                                 int N, int K, void* stream) {
+  if (M < 1 || N < 1 || K < 1 || K > K_EXACT || lda < K || ldb < N) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const unsigned char* a = (const unsigned char*)A;
   const unsigned char* b = (const unsigned char*)B;
@@ -239,9 +159,10 @@ extern "C" int lf_bf16_gemm_sm90(const void* A, long long lda, const void* B, lo
   const bool va = (unsigned long long)A % 16 == 0 && lda % 16 == 0;
   const bool vb = (unsigned long long)B % 16 == 0 && ldb % 16 == 0;
   const bool vc = (unsigned long long)C % 16 == 0 && N % 4 == 0;
-  if (route == ROUTE_BF16 && bn == 16) return launch<ROUTE_BF16, 16>(a, lda, b, ldb, c, M, N, K, va, vb, vc, s);
-  if (route == ROUTE_BF16 && bn == 32) return launch<ROUTE_BF16, 32>(a, lda, b, ldb, c, M, N, K, va, vb, vc, s);
-  if (route == ROUTE_U8 && bn == 16) return launch<ROUTE_U8, 16>(a, lda, b, ldb, c, M, N, K, va, vb, vc, s);
-  if (route == ROUTE_U8 && bn == 32) return launch<ROUTE_U8, 32>(a, lda, b, ldb, c, M, N, K, va, vb, vc, s);
-  return (int)cudaErrorInvalidValue;
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  const int ss = (K + KS - 1) / KS;
+  if (ss == 1) bf16_gemm_sm90<1><<<grid, THREADS, 0, s>>>(a, lda, b, ldb, c, M, N, K, va, vb, vc);
+  if (ss == 2) bf16_gemm_sm90<2><<<grid, THREADS, 0, s>>>(a, lda, b, ldb, c, M, N, K, va, vb, vc);
+  if (ss == 3) bf16_gemm_sm90<3><<<grid, THREADS, 0, s>>>(a, lda, b, ldb, c, M, N, K, va, vb, vc);
+  return (int)cudaGetLastError();
 }

@@ -63,7 +63,7 @@ _ARGTYPES = {
     "plane_epilogue_diag": ("plane_epilogue_diag", "lf_plane_epilogue_diag", [_P] * 4 + [_I] * 12 + [_U64P, _P]),
     "int_gemm": ("int_gemm", "lf_int_gemm", [_P, _LL, _P, _LL, _P, _LL] + [_I] * 6 + [_P]),
     "int_gemm_sm90": ("int_gemm_sm90", "lf_int_gemm_sm90", [_P, _LL, _P, _LL, _P] + [_I] * 6 + [_P] * 3),
-    "bf16_gemm_sm90": ("bf16_gemm_sm90", "lf_bf16_gemm_sm90", [_P, _LL, _P, _LL, _P] + [_I] * 5 + [_P]),
+    "bf16_gemm_sm90": ("bf16_gemm_sm90", "lf_bf16_gemm_sm90", [_P, _LL, _P, _LL, _P] + [_I] * 3 + [_P]),
     "dma_checksum": ("probe", "lf_dma_checksum", [_P, _LL, _P, _LL, _P, _I, _I, _P]),
     "bitcast": ("probe", "lf_bitcast_u8", [_P, _LL, _P, _P]),
     "merge": ("probe", "lf_merge_minor", [_P, _I, _I, _I, _P, _P]),

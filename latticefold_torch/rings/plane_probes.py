@@ -56,8 +56,6 @@ _GEMM_MIN_SPLIT_K = 256  # the least K a split of the Hopper GEMM takes
 _GEMM_MAX_SPLIT = 64  # the most splits: the last split to arrive adds the others
 _GEMM_CONSUMERS = 256  # consumer threads a block (csrc: GEMM_THREADS)
 BF16_K_MAX = 258  # the largest K whose float32 sums of u8 products are exact: 255^2 K < 2^24
-_BF16_ROUTE = 0  # the bf16 instance's route: the 16-bit wgmma (csrc/bf16_gemm_sm90.cuh ROUTE_BF16)
-_BF16_BN = 32  # the columns of C a block of the bf16 instance owns (16 or 32: 32 measured faster)
 
 
 @functools.lru_cache(maxsize=None)
@@ -263,18 +261,28 @@ def _bf16_operands(a, b):
                          f"below 2^24")
 
 
-def _bf16_sm90(a, b, route: int = _BF16_ROUTE, bn: int = _BF16_BN):
+def _byte_rows(x):
+    """(x, or a contiguous copy where its rows are not contiguous bytes, and
+    its row stride in bytes): what the bf16 launcher takes (unit stride
+    along a row, rows at least a row apart). A stride along a dimension of
+    size 1 is never read, so such a view is passed as it is."""
+    rows, cols = x.shape
+    if (cols > 1 and x.stride(1) != 1) or (rows > 1 and x.stride(0) < cols):
+        x = x.contiguous()
+    return x, (x.stride(0) if rows > 1 else cols)
+
+
+def _bf16_sm90(a, b):
     """The bf16 instance on Hopper (``bf16_gemm_sm90_kernel.cu``), one
-    launch: ``route`` 0 the 16-bit wgmma, 1 the u8 integer MMA (timed
-    against it by ``tools/exp_bf16_gemm_routes.py``), ``bn`` 16 or 32."""
+    launch; an empty product (M, K or N 0) is zeros without one."""
     dev = a.device
     M, K, N = _gemm_shape(a, b)
-    if a.stride(1) != 1 or b.stride(1) != 1:
-        raise ValueError("bf16_gemm: rows of contiguous bytes expected (stride 1 along K and N)")
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
+    if M == 0 or N == 0 or K == 0:
+        return out.zero_()
+    (a, lda), (b, ldb) = _byte_rows(a), _byte_rows(b)
     code = cuda.kernel("bf16_gemm_sm90")(
-        a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0), out.data_ptr(), M, N, K, route, bn,
-        cuda.stream_handle(dev),
+        a.data_ptr(), lda, b.data_ptr(), ldb, out.data_ptr(), M, N, K, cuda.stream_handle(dev),
     )
     cuda.check(code, "bf16_gemm_sm90")
     cuda.LAUNCHES["bf16_gemm_sm90"] += 1

@@ -154,6 +154,35 @@ def test_bf16_gemm_refuses_k_past_exact_float32(fn):
         fn(torch.zeros((2, k + 1), dtype=torch.uint8), torch.zeros((k + 1, 2), dtype=torch.uint8))
 
 
+def test_bf16_byte_rows_take_every_view_the_cpu_takes():
+    """The card's launcher wants rows of contiguous bytes at least a row
+    apart: ``_byte_rows`` passes such views as they are (a stride along a
+    dimension of size 1 is never read) and copies the rest, so the card
+    takes every operand the CPU's plain version takes."""
+    base = torch.arange(64, dtype=torch.int64).to(torch.uint8)
+    cases = [
+        (base.view(8, 8), False, 8),  # contiguous
+        (base.view(4, 16)[:, :8], False, 16),  # rows 16 bytes apart
+        (base[:8].view(1, 8).t(), False, 1),  # [K, 1] view of a row: stride 8 along its size-1 dimension
+        (base[:8].view(8, 1).t(), False, 8),  # [1, K] view of a column
+        (base.view(8, 8).t(), True, 8),  # column-major
+        (base[:8].view(1, 8).expand(4, 8), True, 8),  # rows 0 bytes apart
+    ]
+    for x, copied, ld in cases:
+        y, got_ld = pp._byte_rows(x)
+        assert torch.equal(y, x) and (y.data_ptr() != x.data_ptr()) == copied and got_ld == ld
+        assert y.stride(1) == 1 or y.shape[1] == 1
+
+
+@pytest.mark.parametrize("m,k,n", [(3, 0, 4), (0, 5, 4), (3, 5, 0)])
+def test_bf16_gemm_of_an_empty_product(m, k, n):
+    """An empty product is zeros of its shape on every device (the card's
+    wrapper returns them without a launch)."""
+    for fn in (pp.bf16_gemm, pp.bf16_gemm_plain):
+        got = fn(torch.zeros((m, k), dtype=torch.uint8), torch.zeros((k, n), dtype=torch.uint8))
+        assert got.dtype == torch.float32 and got.shape == (m, n) and not got.any()
+
+
 def test_bitcast_and_merge_are_byte_exact():
     """Both designs' wrappers (the vector copy and the first design, off the
     card their plain versions) at the probe shapes and a size with a tail."""
